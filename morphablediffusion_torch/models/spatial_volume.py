@@ -1,0 +1,130 @@
+"""Spatial-volume conditioning orchestrator.
+
+Counterpart of the JAX package's `models/spatial_volume.py::SpatialVolumeNet`
+(coarse mesh-voxel mode, no SpatialTime3DNet):
+
+  * `construct_spatial_volume` encodes all N noisy views, unprojects a shared
+    V^3 grid in [-L, L]^3 into every view, samples the view-MEAN volume at the
+    mesh vertices (exact: trilinear sampling is linear in the volume, and the
+    per-vertex linear commutes with the mean), runs the mesh voxel net and
+    queries it back on the grid -> (B, 64, V, V, V).
+  * `construct_view_frustum_volume` builds a (D, h, w) camera-frustum ray
+    volume per target view with near/far = camera distance -+ L_f, samples the
+    spatial volume along it, and runs FrustumTV3DNet -> {width: volume}.
+
+Volumes are channels-first with array axes (d, h, w) = (z, y, x); world xyz
+coordinates keep the JAX layout, xyz on the last axis.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from morphablediffusion_torch.models.conditioner import (
+    FrustumTV3DNet,
+    NoisyTargetViewEncoder,
+    SMPLFeatureExtractor,
+)
+from morphablediffusion_torch.models.mesh_voxel import MeshVoxelNet
+from morphablediffusion_torch.ops import geometry
+from morphablediffusion_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
+
+
+def spatial_grid_xyz(size: int, length: float, device=None, dtype=torch.float32):
+    """(V, V, V, 3) world xyz of the shared volume; array axes are (z, y, x)."""
+    lin = torch.linspace(-length, length, size, dtype=dtype, device=device)
+    z, y, x = torch.meshgrid(lin, lin, lin, indexing="ij")
+    return torch.stack([x, y, z], dim=-1)
+
+
+class SpatialVolumeNet(nn.Module):
+    def __init__(self, t_dim=256, v_dim=4, input_image_size=256,
+                 spatial_volume_size=32, spatial_volume_length=0.5,
+                 frustum_volume_depth=48, frustum_volume_length=0.86603,
+                 projection="perspective",
+                 voxel_grid_shape: Tuple[int, int, int] = (48, 48, 48),
+                 coarse_voxel_size=0.02,
+                 volume_dims: Tuple[int, ...] = (64, 128, 256, 512),
+                 dtype=torch.float32):
+        super().__init__()
+        self.input_image_size = input_image_size
+        self.spatial_volume_size = spatial_volume_size
+        self.spatial_volume_length = spatial_volume_length
+        self.frustum_volume_depth = frustum_volume_depth
+        self.frustum_volume_length = frustum_volume_length
+        self.projection = projection
+        self.target_encoder = NoisyTargetViewEncoder(t_dim, v_dim, 4, 16, 16, dtype)
+        self.smpl_feature_extractor = SMPLFeatureExtractor(16, 16, dtype)
+        self.mesh_voxel = MeshVoxelNet(16, voxel_grid_shape, coarse_voxel_size,
+                                       dtype=dtype)
+        self.frustum_volume_feats = FrustumTV3DNet(64, t_dim, v_dim, volume_dims, dtype)
+
+    @property
+    def frustum_volume_size(self) -> int:
+        return self.input_image_size // 8
+
+    def construct_spatial_volume(self, x, t_embed, v_embed, target_Ks, target_RTs,
+                                 vertices, vert_mask):
+        """x: (B, N, 4, h, w) noisy latents; t_embed: (B, td); v_embed:
+        (B, N, vd); target_Ks: (B, N, 3+, 3+); target_RTs: (B, N, 3, 4);
+        vertices: (B, Nv, 3) world xyz; vert_mask: (B, Nv).
+        Returns (B, C_vol, V, V, V)."""
+        B, N, C_in, h, w = x.shape
+        V, L = self.spatial_volume_size, self.spatial_volume_length
+
+        x_flat = x.reshape(B * N, C_in, h, w)
+        t_flat = t_embed[:, None].expand(B, N, t_embed.shape[-1]).reshape(B * N, -1)
+        v_flat = v_embed.reshape(B * N, v_embed.shape[-1])
+        feats = self.target_encoder(x_flat, t_flat, v_flat)  # (B*N, 16, h, w)
+
+        grid_xyz = spatial_grid_xyz(V, L, device=x.device)
+        grid_b = grid_xyz[None].expand(B * N, V, V, V, 3)
+        Ks_flat = target_Ks.reshape((B * N,) + target_Ks.shape[2:])
+        RT_flat = target_RTs.reshape(B * N, 3, 4)
+        coords = geometry.get_warp_coordinates(
+            grid_b, feats.shape[-2], self.input_image_size, Ks_flat, RT_flat,
+            self.projection)  # (B*N, V, V, V, 2)
+        unproj = grid_sample_2d(feats, coords)  # (B*N, 16, V, V, V)
+        C = unproj.shape[1]
+        vol_mean = unproj.reshape(B, N, C, V, V, V).float().mean(1).to(unproj.dtype)
+
+        vert_feats = grid_sample_3d(vol_mean, vertices / L)  # (B, 16, Nv)
+        smpl_feats = self.smpl_feature_extractor(vert_feats.transpose(1, 2))
+
+        vert_dhw = vertices.flip(-1)
+        big = torch.tensor(1e9, dtype=vertices.dtype, device=vertices.device)
+        min_dhw = torch.where(vert_mask[..., None] > 0, vert_dhw, big).amin(1)
+        query_dhw = grid_xyz.flip(-1)[None].expand(B, V, V, V, 3)
+        return self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw)
+
+    def construct_view_frustum_volume(self, spatial_volume, t_embed, v_embed_sel,
+                                      poses, Ks):
+        """spatial_volume: (B, C, V, V, V); t_embed: (B, td); v_embed_sel:
+        (B, TN, vd); poses: (B, TN, 3, 4); Ks: (B, TN, 3+, 3+).
+        Returns ({width: (B*TN, C', D', w, w)}, depth (B*TN, D, h, w))."""
+        B, TN = poses.shape[:2]
+        Hf = self.frustum_volume_size
+        D = self.frustum_volume_depth
+        L = self.spatial_volume_length
+
+        poses_flat = poses.reshape(B * TN, 3, 4)
+        Ks_flat = Ks.reshape((B * TN,) + Ks.shape[2:])
+        dist = torch.linalg.norm(geometry.camera_positions(poses_flat), dim=-1)
+        near = dist - self.frustum_volume_length
+        far = dist + self.frustum_volume_length
+        xyz, depth = geometry.create_target_volume(
+            D, Hf, self.input_image_size, poses_flat, Ks_flat, near, far,
+            self.projection)  # (B*TN, D, Hf, Hf, 3)
+
+        grid = (xyz / L).reshape(B, TN * D * Hf * Hf, 3)
+        frustum = grid_sample_3d(spatial_volume, grid)  # (B, C, TN*D*Hf*Hf)
+        C = frustum.shape[1]
+        frustum = frustum.reshape(B, C, TN, D, Hf, Hf).transpose(1, 2)
+        frustum = frustum.reshape(B * TN, C, D, Hf, Hf)
+
+        t_flat = t_embed[:, None].expand(B, TN, t_embed.shape[-1]).reshape(B * TN, -1)
+        v_flat = v_embed_sel.reshape(B * TN, -1)
+        return self.frustum_volume_feats(frustum, t_flat, v_flat), depth

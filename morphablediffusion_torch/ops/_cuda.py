@@ -1,0 +1,139 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each kernel source under `morphablediffusion_torch/csrc/` is compiled with
+`nvcc` for Hopper (`sm_90a`) into its own shared library with a plain C
+interface, at first use, into `build/torch_kernels/` at the repository root,
+and loaded with `ctypes`. Library names carry a hash of the source and the
+flags, so an edited source is rebuilt. Nothing is compiled or loaded when a
+module is imported: the CPU tests import every module.
+
+Every C entry point launches on the stream it is given and returns
+`cudaGetLastError()`; `CudaKernel.launch` raises on a non-zero code and
+counts the launches that were made.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return found
+
+
+class CudaKernel:
+    """One kernel source, its C entry point, and a count of its launches.
+
+    `launches` is incremented once for every kernel launch made through
+    `launch`, and nowhere else.
+    """
+
+    def __init__(self, name: str, source: str, entry: str, argtypes):
+        self.name = name
+        self.source = CSRC / source
+        self.entry = entry
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""
+        self.build_seconds = 0.0
+        self._fn = None
+        self._err = None
+
+    def lib_path(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+
+    def _load(self):
+        if self._fn is None:
+            build([self])
+            lib = ctypes.CDLL(str(self.lib_path()))
+            fn = getattr(lib, self.entry)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = lib.md_cuda_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn, self._err = fn, err
+        return self._fn
+
+    def launch(self, *args):
+        """Call the C entry point; raise if the launch reported an error."""
+        code = self._load()(*args)
+        if code != 0:
+            msg = self._err(code).decode()
+            raise RuntimeError(f"{self.name}: CUDA error {code} ({msg})")
+        self.launches += 1
+
+
+def build(kernels) -> None:
+    """Compile every kernel whose library is missing, one nvcc per source,
+    all started together; wait for all of them and raise if any failed."""
+    todo = [k for k in kernels if not k.lib_path().exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for k in todo:
+            tmp = k.lib_path().with_name(f"{k.lib_path().name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
+            procs.append((k, tmp, time.perf_counter(), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for k, tmp, t0, p in procs:
+            k.build_log = p.communicate()[0]
+            k.build_seconds = time.perf_counter() - t0
+            if p.returncode != 0:
+                failed.append(f"nvcc failed for {k.source}:\n{k.build_log}")
+            else:
+                os.replace(tmp, k.lib_path())
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous `dtype` tensor on the CUDA
+    device of the first one."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: the kernel takes {dtype}, got {t.dtype}")

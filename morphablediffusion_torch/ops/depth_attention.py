@@ -1,0 +1,138 @@
+"""Depth-wise attention and the fused depth-context chain (kernel K1).
+
+Counterpart of the JAX package's `ops/depth_attention.py`. The paper's
+3D-aware attention attends over the frustum depth axis only: for every pixel
+and head, softmax over d of <q, k_d> * hd^-1/2, then the depth-weighted sum of
+v_d.
+
+At serving, every DepthTransformer runs the fused context chain
+proj_context -> GroupNorm(relu) -> to_k/to_v -> depth attention. The
+GroupNorm statistics of the bias-free projection follow from the context's
+first and second moments (`ctx_moments`, `_ctx_affine`, plain fp32 torch,
+outside the kernel), so the norm folds into a per-(sample, channel) affine
+y = relu(p * A + B2), and the Hopper kernel `csrc/depth_attention_ctx.cu`
+streams the raw context once without writing any (B, C, D, H, W) tensor.
+
+Layout is channels-first: q (B, Ci, H, W), context (B, Cc, D, H, W), k/v
+(B, C, D, H, W), outputs (B, Ci, H, W). Weights are nn.Linear (out, in).
+
+`ctx_attention` takes the plain version `_ctx_reference` for a tensor on the
+CPU; for a CUDA tensor it launches the kernel or raises. `_reference` is the
+plain depth attention on projected k/v (the JAX package's Pallas `_kernel`,
+whose Hopper port is queued as ROADMAP B2); it serves the training path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from morphablediffusion_torch.ops import _cuda
+
+KERNEL = _cuda.CudaKernel(
+    "depth_attention_ctx", "depth_attention_ctx.cu", "md_depth_attention_ctx_fwd",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _reference(q, k, v, num_heads: int):
+    """Plain depth attention: q (B, C, H, W); k, v (B, C, D, H, W) ->
+    (B, C, H, W). Logits and softmax in fp32, weights cast to v's dtype."""
+    B, C, H, W = q.shape
+    D = k.shape[2]
+    hd = C // num_heads
+    qh = q.reshape(B, num_heads, hd, H * W).float()
+    kh = k.reshape(B, num_heads, hd, D, H * W).float()
+    vh = v.reshape(B, num_heads, hd, D, H * W)
+    sim = torch.einsum("bncs,bncds->bnds", qh, kh) * hd**-0.5
+    attn = torch.softmax(sim, dim=2).to(v.dtype)
+    out = torch.einsum("bnds,bncds->bncs", attn, vh)
+    return out.reshape(B, C, H, W)
+
+
+def ctx_moments(ctx):
+    """Per-sample first and second moments of the context channels, fp32:
+    mean_x (B, Cc) and m2 (B, Cc, Cc) = E[x x^T] over depth and pixels.
+    Computed once per frustum width and shared by the blocks that read it."""
+    B, Cc = ctx.shape[:2]
+    flat = ctx.reshape(B, Cc, -1).float()
+    S = flat.shape[-1]
+    mean_x = flat.sum(-1) / S
+    m2 = torch.bmm(flat, flat.transpose(1, 2)) / S
+    return mean_x, m2
+
+
+def _ctx_affine(mean_x, m2, Wp, gn_scale, gn_bias, num_groups: int, eps: float):
+    """Fold proj + GroupNorm into per-(B, Cc) affine A, B2 (fp32).
+
+    E[p] = Wp E[x] and E[p_f^2] = (Wp M2 Wp^T)_ff; Wp is (out, in)."""
+    B, Cc = mean_x.shape
+    cg = Cc // num_groups
+    wp = Wp.float()
+    mean_p = mean_x @ wp.t()
+    e2 = ((m2 @ wp.t()) * wp.t()[None]).sum(1)
+    mu_g = mean_p.reshape(B, num_groups, cg).sum(-1) / cg
+    e2_g = e2.reshape(B, num_groups, cg).sum(-1) / cg
+    var = torch.clamp(e2_g - mu_g * mu_g, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    A = gn_scale.float()[None] * inv.repeat_interleave(cg, dim=1)
+    B2 = gn_bias.float()[None] - mu_g.repeat_interleave(cg, dim=1) * A
+    return A, B2
+
+
+def _ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int):
+    """Plain fused-chain version of the kernel (same math, unfused)."""
+    p = torch.einsum("oc,bcdhw->bodhw", Wp.to(ctx.dtype), ctx)
+    y = torch.relu(p.float() * A[:, :, None, None, None]
+                   + B2[:, :, None, None, None]).to(ctx.dtype)
+    k = torch.einsum("oc,bcdhw->bodhw", Wk.to(y.dtype), y)
+    v = torch.einsum("oc,bcdhw->bodhw", Wv.to(y.dtype), y)
+    return _reference(q, k, v, num_heads)
+
+
+def _tile(B: int, S: int, num_heads: int) -> int:
+    """Pixels per block: 64 where that still gives >= 256 blocks, else 16."""
+    return 64 if S % 64 == 0 and B * (S // 64) * num_heads >= 256 else 16
+
+
+def ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int):
+    """relu((Wp ctx) * A + B2) -> k, v -> depth attention with q.
+
+    q (B, Ci, H, W); ctx (B, Cc, D, H, W); Wp (Cc, Cc); A, B2 (B, Cc) fp32;
+    Wk, Wv (Ci, Cc). Returns (B, Ci, H, W), before to_out. CPU tensors take
+    `_ctx_reference`; CUDA tensors go to the kernel, which takes bf16.
+    """
+    if not q.is_cuda:
+        return _ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, num_heads)
+    _cuda.check_cuda("depth_attention_ctx", torch.bfloat16, q, ctx, Wp, Wk, Wv)
+    _cuda.check_cuda("depth_attention_ctx", torch.float32, A, B2)
+    B, Ci, H, W = q.shape
+    Cc, D = ctx.shape[1], ctx.shape[2]
+    S = H * W
+    if (ctx.shape != (B, Cc, D, H, W) or Wp.shape != (Cc, Cc)
+            or Wk.shape != (Ci, Cc) or Wv.shape != (Ci, Cc)
+            or A.shape != (B, Cc) or B2.shape != (B, Cc)):
+        raise ValueError("depth_attention_ctx: inconsistent shapes")
+    hd = Ci // num_heads
+    tile = _tile(B, S, num_heads)
+    if Ci % num_heads or hd % 16 or Cc % 16 or S % tile:
+        raise ValueError(f"depth_attention_ctx: needs Cc, head_dim multiples of "
+                         f"16 and H*W a multiple of {tile}; got Cc={Cc}, "
+                         f"head_dim={hd}, H*W={S}")
+    out = torch.empty_like(q)
+    KERNEL.launch(_cuda.ptr(q), _cuda.ptr(ctx), _cuda.ptr(Wp), _cuda.ptr(A),
+                  _cuda.ptr(B2), _cuda.ptr(Wk), _cuda.ptr(Wv), _cuda.ptr(out),
+                  B, D, S, Cc, Ci, num_heads, tile, hd**-0.5,
+                  _cuda.stream_of(q))
+    return out
+
+
+def depth_attention_ctx(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv,
+                        num_heads: int, num_groups: int = 8, eps: float = 1e-5):
+    """Fused proj_context + GroupNorm(relu) + k/v + depth attention.
+
+    (mean_x, m2) = ctx_moments(ctx); gn_scale/gn_bias (Cc,). Shapes as in
+    `ctx_attention`.
+    """
+    A, B2 = _ctx_affine(mean_x, m2, Wp, gn_scale, gn_bias, num_groups, eps)
+    return ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, num_heads)

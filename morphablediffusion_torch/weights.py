@@ -1,0 +1,120 @@
+"""Weights of the PyTorch port: the JAX parameter bridge, seeded weights and
+the serving cast.
+
+The port's modules carry the flax parameter names (`unet.in_1_res.norm_in`),
+so a JAX parameter tree maps key by key and `load_state_dict(strict=True)`
+proves that every leaf is covered.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from morphablediffusion_torch.models import layers
+from morphablediffusion_torch.models.mesh_voxel import MaskedInstanceNorm
+from morphablediffusion_torch.utils import resolve_device
+
+# flax kernels of FrustumTVUpBlock.conv (ConvTranspose3dTorch), stored
+# conv-style and spatially flipped
+_TRANSPOSED = re.compile(r"(^|/)up\d+/conv/kernel$")
+
+_NORMS = (layers.GroupNorm, layers.LayerNorm, MaskedInstanceNorm)
+
+
+def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested mapping of arrays (a flax parameter tree) -> {'a/b/c': array}."""
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten_tree(v, path))
+        else:
+            flat[path] = np.asarray(v)
+    return flat
+
+
+def from_jax_params(flat: Dict[str, np.ndarray], device=None) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree flattened to '/'-joined paths (below 'params') ->
+    a state_dict of the port's modules, fp32 on `device` (default the CUDA
+    card; without one this raises unless device="cpu" is passed).
+
+    Dense kernel (I, O) -> Linear weight (O, I); conv kernel (kh, kw, I, O)
+    -> (O, I, kh, kw) and likewise in 3D; the ConvTranspose3dTorch kernel
+    (k, k, k, I, O), stored flipped, -> ConvTranspose3d weight (I, O, k, k, k)
+    with the flip undone; norm `scale` -> `weight`. Other leaves (CLIP's
+    class_embedding, positional_embedding, proj) keep name and layout.
+    """
+    dev = resolve_device(device)
+    sd = {}
+    for path, arr in flat.items():
+        parts = path.split("/")
+        a = np.asarray(arr, dtype=np.float32)
+        leaf = parts[-1]
+        at = lambda name: ".".join(parts[:-1] + [name])
+        if leaf == "kernel":
+            if a.ndim == 2:
+                a = a.T
+            elif _TRANSPOSED.search(path):
+                a = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            elif a.ndim == 5:
+                a = a.transpose(4, 3, 0, 1, 2)
+            else:
+                raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
+            key = at("weight")
+        elif leaf == "scale":
+            key = at("weight")
+        else:
+            key = ".".join(parts)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return sd
+
+
+def _fan_in(module: nn.Module, name: str, p: torch.Tensor) -> int:
+    """fan_in of a weight, taken from the shape it has in the JAX tree."""
+    if isinstance(module, nn.ConvTranspose3d):  # JAX (k, k, k, I, O)
+        return int(np.prod(p.shape[2:])) * p.shape[0]
+    if isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d)):  # JAX (.., I, O)
+        return int(np.prod(p.shape[1:]))
+    return p.shape[0]  # raw (I, O)-style leaves: positional_embedding, proj
+
+
+@torch.no_grad()
+def seeded_params(model: nn.Module, seed: int) -> nn.Module:
+    """Fill every parameter with seeded initializer-family values: norm
+    scales 1, biases 0, kernels N(0, 1/fan_in) with fan_in from the JAX
+    shape, other 1-D leaves N(0, 0.02^2). Draws from one torch.Generator on
+    the model's device, in parameter order. Returns the model."""
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for mod_name, module in model.named_modules():
+        for name, p in module.named_parameters(recurse=False):
+            if isinstance(module, _NORMS):
+                p.fill_(1.0 if name == "weight" else 0.0)
+            elif name == "bias":
+                p.zero_()
+            elif p.ndim >= 2:
+                std = _fan_in(module, name, p) ** -0.5
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * std)
+            else:
+                p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.02)
+    return model
+
+
+@torch.no_grad()
+def cast_for_serving(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Cast matmul and conv weights (and biases, embeddings) to `dtype`;
+    normalization parameters stay fp32 for the fp32 statistics path."""
+    for module in model.modules():
+        if isinstance(module, _NORMS):
+            continue
+        for name, p in module.named_parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return model

@@ -1,0 +1,121 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Marked `cuda`; every test skips without a CUDA card. This file imports
+neither JAX nor the JAX package, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Inputs are bf16 on the card; each kernel is held to its plain PyTorch
+version on the same bf16 inputs within relative L2 1e-2 (the two round the
+bf16 products at different places; chip_smoke.py holds the same bar at the
+main path's shapes).
+"""
+
+import pytest
+import torch
+
+from morphablediffusion_torch.ops import depth_attention as da
+from morphablediffusion_torch.ops import flash_attention as fa
+
+pytestmark = pytest.mark.cuda
+REL_L2 = 1e-2
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(g, *shape, std=1.0):
+    return (torch.randn(*shape, generator=g, device=g.device) * std).bfloat16()
+
+
+def _rel(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=0):
+    g = torch.Generator(dev).manual_seed(seed)
+    q, ctx = _randn(g, B, Ci, W, W), _randn(g, B, Cc, D, W, W)
+    Wp, Wk, Wv = (_randn(g, o, Cc, std=Cc ** -0.5) for o in (Cc, Ci, Ci))
+    mean_x, m2 = da.ctx_moments(ctx)
+    scale = 1.0 + 0.1 * torch.randn(Cc, generator=g, device=dev)
+    bias = 0.1 * torch.randn(Cc, generator=g, device=dev)
+    A, B2 = da._ctx_affine(mean_x, m2, Wp, scale, bias, 8, 1e-5)
+    return q, ctx, Wp, A, B2, Wk, Wv, heads
+
+
+@pytest.mark.parametrize("B,W,D,Cc,Ci,heads", [
+    (2, 4, 6, 32, 64, 4),     # 16-pixel tiles, head_dim 16
+    (16, 8, 12, 64, 128, 4),  # 64-pixel tiles, head_dim 32
+    (1, 8, 5, 128, 256, 2),   # odd depth, head_dim 128
+    (3, 16, 3, 16, 64, 1),    # one head
+])
+def test_depth_attention_ctx_kernel(dev, B, W, D, Cc, Ci, heads):
+    args = _ctx_args(dev, B, W, D, Cc, Ci, heads)
+    before = da.KERNEL.launches
+    out = da.ctx_attention(*args)
+    torch.cuda.synchronize()
+    assert da.KERNEL.launches == before + 1
+    assert out.shape == args[0].shape and out.dtype == torch.bfloat16
+    assert _rel(out, da._ctx_reference(*args)) <= REL_L2
+
+
+def test_depth_attention_ctx_kernel_is_the_fused_chain(dev):
+    """The public entry (moments folded into the affine) against the
+    unfused chain proj -> GroupNorm(relu) -> k/v -> depth attention, fp32."""
+    from morphablediffusion_torch.ops.group_norm import group_norm
+
+    B, W, D, Cc, Ci, heads = 2, 8, 6, 32, 64, 4
+    g = torch.Generator(dev).manual_seed(1)
+    q, ctx = _randn(g, B, Ci, W, W), _randn(g, B, Cc, D, W, W)
+    Wp, Wk, Wv = (_randn(g, o, Cc, std=Cc ** -0.5) for o in (Cc, Ci, Ci))
+    scale, bias = torch.ones(Cc, device=dev), torch.zeros(Cc, device=dev)
+    mean_x, m2 = da.ctx_moments(ctx)
+    out = da.depth_attention_ctx(q, ctx, mean_x, m2, Wp, scale, bias, Wk, Wv, heads)
+    f = lambda t: t.float()
+    p = torch.einsum("oc,bcdhw->bodhw", f(Wp), f(ctx))
+    y = group_norm(p, scale, bias, 8, 1e-5, "relu")
+    k = torch.einsum("oc,bcdhw->bodhw", f(Wk), y)
+    v = torch.einsum("oc,bcdhw->bodhw", f(Wv), y)
+    assert _rel(out, da._reference(f(q), k, v, heads)) <= REL_L2
+
+
+@pytest.mark.parametrize("B,L,heads,hd", [
+    (2, 1024, 8, 40),  # the main path's head_dim, padded to 48 inside
+    (1, 1000, 2, 64),  # ragged last tile
+    (3, 64, 4, 16),
+    (1, 200, 3, 8),
+])
+def test_flash_attention_kernel(dev, B, L, heads, hd):
+    g = torch.Generator(dev).manual_seed(2)
+    q, k, v = (_randn(g, B, L, heads * hd) for _ in range(3))
+    before = fa.KERNEL.launches
+    out = fa.flash_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert _rel(out, fa.attention_reference(q, k, v, heads)) <= REL_L2
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    g = torch.Generator(dev).manual_seed(3)
+    q, k, v = (_randn(g, 2, 64, 2 * 40) for _ in range(3))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q.float(), k.float(), v.float(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, k, v, 8)  # head_dim 10
+    args = list(_ctx_args(dev, 2, 4, 6, 32, 64, 4))
+    args[1] = args[1].transpose(3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.ctx_attention(*args)
+    args = list(_ctx_args(dev, 2, 4, 6, 32, 96, 4))  # head_dim 24
+    with pytest.raises(ValueError, match="head_dim"):
+        da.ctx_attention(*args)

@@ -1,0 +1,124 @@
+"""Guards of the PyTorch port's boundaries.
+
+  * the package imports neither JAX nor the JAX package, and no file of it
+    names the JAX package;
+  * `from_jax_params` + `load_state_dict(strict=True)` covers the whole
+    tiny parameter tree of the served model;
+  * the entry points raise without a CUDA card unless the CPU is asked for;
+  * `chip_smoke.py` fails without a card and prints no result, and the main
+    path it counts launches on is the one the issue pins (500 + 250).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+import torch
+
+import chip_smoke
+from morphablediffusion_torch import weights
+from morphablediffusion_torch.models.diffusion import MorphableDiffusion as TModel
+from morphablediffusion_torch.utils import config as port_config
+from morphablediffusion_torch.utils import resolve_device
+from morphablediffusion_tpu.models.diffusion import MorphableDiffusion as JModel
+from tests.test_torch_sampler import _init_inference
+from tests.tiny import tiny_batch, tiny_config
+from tests.torch_parity import port_model_config, seeded_tree
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "morphablediffusion_torch"
+
+
+def _run(code: str, cwd=REPO, **env):
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, capture_output=True,
+                          text=True, timeout=300, env={**os.environ, **env})
+
+
+def test_package_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import morphablediffusion_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'morphablediffusion_tpu'))\n"
+        "print('BAD', bad)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+
+
+def test_no_file_names_the_jax_package():
+    files = [f for f in PKG.rglob("*") if f.is_file() and "__pycache__" not in f.parts]
+    assert any(f.suffix == ".cu" for f in files)
+    named = [str(f) for f in files if b"morphablediffusion_tpu" in f.read_bytes()]
+    assert named == []
+
+
+def test_bridge_covers_the_whole_tiny_tree():
+    cfg = tiny_config(view_num=2)
+    jmodel = JModel(cfg.model)
+    batch = tiny_batch(cfg, with_targets=False)
+    params = seeded_tree(jax.eval_shape(
+        lambda b: jmodel.init(jax.random.key(0), b, method=_init_inference), batch))
+    flat = weights.flatten_tree(params["params"])
+    port = TModel(port_model_config(cfg.model), device="cpu")
+    sd = weights.from_jax_params(flat, device="cpu")
+    assert len(sd) == len(flat)
+    port.load_state_dict(sd, strict=True)  # raises on a missing or extra key
+    assert any(k.startswith("spatial_volume.mesh_voxel.conv6") for k in sd)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    cfg = port_config.ModelConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TModel(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        weights.from_jax_params({})
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_cuda():
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and "kernels" not in r.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    (tmp_path / "chip_smoke.py").write_bytes((REPO / "chip_smoke.py").read_bytes())
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, capture_output=True,
+                       text=True, timeout=300,
+                       env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_main_path_counts():
+    k1, k2 = chip_smoke.main_path_shapes(port_config.Config())
+    assert [(s["W"], s["D"], s["Cc"], s["Ci"], s["per_step"]) for s in k1] == [
+        (4, 6, 512, 1024, 1), (8, 12, 256, 512, 2), (16, 24, 128, 256, 3),
+        (32, 48, 64, 128, 4)]
+    assert (k2["B"], k2["L"], k2["heads"], k2["hd"], k2["per_step"]) == (32, 1024, 8, 40, 5)
+    assert 50 * sum(s["per_step"] for s in k1) == 500 and 50 * k2["per_step"] == 250
+
+
+def test_chip_smoke_batch_is_the_bench_batch():
+    """The smoke batch is tests/tiny.py's generator at the flagship sizes,
+    which is what bench.py feeds the JAX package."""
+    jcfg = tiny_config(view_num=3)
+    pcfg = port_config.Config()
+    pcfg.model = port_model_config(jcfg.model)
+    ours = chip_smoke.flagship_batch(pcfg, "cpu")
+    ref = tiny_batch(jcfg, B=1, with_targets=False)
+    assert ours.keys() == ref.keys()
+    for k in ref:
+        torch.testing.assert_close(ours[k], torch.tensor(jax.device_get(ref[k])), rtol=0,
+                                   atol=0)
