@@ -12,14 +12,20 @@ Phases (any failure exits non-zero):
      (one nvcc per source, all started together); print the build seconds and
      the card's name and power limit as nvidia-smi gives them;
   2. hold each kernel against its plain PyTorch version at every shape the
-     main path gives it, in bf16, within relative L2 1e-2, and time the
-     kernel, the plain version and, for flash attention,
-     F.scaled_dot_product_attention (the yardstick `library_ms`; the port
-     never calls it there);
+     serving path and the training path give it (K1 and K2 at both; K2
+     also with its row logsumexp at the serving shape, which serving does
+     not write), in bf16, within relative L2 1e-2, and time the kernel, the
+     plain version and, as the yardstick `library_ms` (the port never calls
+     it), F.scaled_dot_product_attention for flash attention and depth
+     attention, and its backward for the flash backward kernels (K2-dkv and
+     K2-dq against the plain version's autograd gradients);
   3. one full-width `predict_eps_cfg` step with the kernels and with the
      plain versions, in bf16; print and bound the relative L2 between the
      two, and hold the kernels' step no further from the fp32 model (same
-     seeded weights, plain versions) than 1.25 x the plain bf16 step;
+     seeded weights, plain versions) than 1.25 x the plain bf16 step; count
+     that step's GroupNorm calls by shape and, at the most frequent one, give
+     the still unported GroupNorm kernel (K4) its bound, the plain version's
+     time and F.group_norm's;
   4. the full avatar: `Config()` defaults (16 views at 256^2, bf16, CFG 2.0,
      50 DDIM steps, coarse mesh voxels), seeded weights cast for serving; one
      warm-up run, then one timed run with every launch counter set to 0
@@ -27,7 +33,17 @@ Phases (any failure exits non-zero):
      flash kernel 250 times, and the images must be finite and not constant;
   5. profile one denoising step with torch.profiler: the device's busy and
      idle share and its kernel time by group and by name;
-  6. print the kernels line, the card line, and as the last line
+  6. training: `Config()` defaults at full width and depth (remat on),
+     seeded weights, a synthetic batch of 8 samples x 16 target views plus
+     the input view. One loss and backward with the kernels and with the
+     plain versions on the same draws (loss, global grad norm and named
+     gradient leaves printed and bounded by twice the gap between two runs
+     of the plain versions plus a floor); then 2 warm-up and 5 timed
+     `Trainer.train_step`s with every launch counter set to 0 just before
+     them: ms per step (CUDA events), samples/s, peak memory, and launches
+     per step of K1, K2, K2-dkv, K2-dq and K3, asserted; the loss finite and
+     the parameters changed; then one profiled training step;
+  7. print the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Fp32 references on the card run with TF32 off: both
@@ -53,9 +69,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet).
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 REL_L2_KERNEL = 1e-2  # bf16 kernel vs its plain bf16 version
 REL_L2_STEP = 5e-2  # one whole bf16 CFG step, kernels vs plain versions
+TRAIN_BATCH = 8  # samples per training step, one noisy target view each
+TRAIN_STEPS = 5  # timed training steps, after 2 warm-up steps
+# one bf16 training loss and backward, kernels vs plain versions: the loss,
+# the global grad norm (relative) and each named gradient leaf (relative
+# L2). Each may differ by NOISE_FACTOR x the gap between two runs of the
+# plain versions (cuDNN's and grid_sample's backward are not deterministic;
+# on the frustum net's first conv that gap alone measured 6.5e-2) plus its
+# floor. Measured kernels vs plain on an H100: loss 6e-6 to 6e-5, grad norm
+# 1e-4 to 5e-4 (plain vs plain up to 1.1e-4 and 7.8e-4).
+REL_TRAIN_LOSS = 2e-4
+REL_TRAIN_GRAD = 1e-3
+REL_TRAIN_LEAF = 2e-2
+NOISE_FACTOR = 2.0
 # the kernels' bf16 step may sit at most this much further from the fp32
 # model than the plain versions' bf16 step does (both measured ~2.2e-2)
 STEP_VS_FP32_RATIO = 1.25
@@ -66,7 +96,7 @@ def log(msg: str) -> None:
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
-    a, b = a.float(), b.float()
+    a, b = a.detach().float(), b.detach().float()
     return float((a - b).norm() / b.norm())
 
 
@@ -91,10 +121,11 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flagship_batch(cfg, device, seed: int = 0):
-    """Synthetic flagship-shaped batch, the JAX layout: B=1, view_num
+def flagship_batch(cfg, device, seed: int = 0, B: int = 1, with_targets: bool = False):
+    """Synthetic flagship-shaped batch, the JAX layout: B samples, view_num
     targets on a ring of cameras at distance 4 looking at the origin,
-    image_size^2 input image, max_vertices vertices in [-0.2, 0.2]^3."""
+    image_size^2 input image, max_vertices vertices in [-0.2, 0.2]^3, and
+    with_targets the view_num target images (training)."""
     m = cfg.model
     rng = np.random.default_rng(seed)
     N, S, Nv = m.view_num, m.image_size, m.max_vertices
@@ -109,18 +140,20 @@ def flagship_batch(cfg, device, seed: int = 0):
         K[:3, :3] = [[80.0, 0, S / 2], [0, 80.0, S / 2], [0, 0, 1]]
     else:
         K[0, 0] = K[1, 1] = 1 / 0.6
-    verts = rng.uniform(-0.2, 0.2, size=(1, Nv, 3))  # drawn first, as bench.py's batch
+    verts = rng.uniform(-0.2, 0.2, size=(B, Nv, 3))  # drawn first, as bench.py's batch
     arrays = {
-        "input_image": rng.uniform(-1, 1, (1, S, S, 3)),
-        "input_elevation": np.zeros((1, 1)),
-        "input_azimuth": np.zeros((1, 1)),
-        "target_elevation": np.zeros((1, N)),
-        "target_azimuth": np.zeros((1, N)),
-        "target_K": np.broadcast_to(K, (1, N, 4, 4)),
-        "target_RT": np.broadcast_to(np.stack(poses), (1, N, 3, 4)),
+        "input_image": rng.uniform(-1, 1, (B, S, S, 3)),
+        "input_elevation": np.zeros((B, 1)),
+        "input_azimuth": np.zeros((B, 1)),
+        "target_elevation": np.zeros((B, N)),
+        "target_azimuth": np.zeros((B, N)),
+        "target_K": np.broadcast_to(K, (B, N, 4, 4)),
+        "target_RT": np.broadcast_to(np.stack(poses), (B, N, 3, 4)),
         "vertices": verts,
-        "vertex_mask": np.ones((1, Nv)),
+        "vertex_mask": np.ones((B, Nv)),
     }
+    if with_targets:
+        arrays["target_image"] = rng.uniform(-1, 1, (B, N, S, S, 3))
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in arrays.items()}
 
@@ -175,19 +208,13 @@ def bound_ms(flops: float, nbytes: float):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def check_kernels(k1_shapes, k2_shape, device, iters: int = 10):
-    """Phase 2: every kernel against its plain version at the main path's
-    shapes, bf16. Returns {name: result} for the kernels line."""
+def check_k1(shapes, device, rn, iters: int, path: str):
+    """K1 against `_ctx_reference` at each of `shapes` (one row each, tagged
+    with the path, serving or training, whose launches per_step counts)."""
     from morphablediffusion_torch.ops import depth_attention as da
-    from morphablediffusion_torch.ops import flash_attention as fa
-    import torch.nn.functional as F
-
-    g = torch.Generator(device).manual_seed(0)
-    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=device) * std).bfloat16()
-    results = {}
 
     rows = []
-    for s in k1_shapes:
+    for s in shapes:
         B, W, D, Cc, Ci, heads = s["B"], s["W"], s["D"], s["Cc"], s["Ci"], s["heads"]
         q, ctx = rn(B, Ci, W, W), rn(B, Cc, D, W, W)
         Wp, Wk, Wv = (rn(Cc, Cc, std=Cc ** -0.5), rn(Ci, Cc, std=Cc ** -0.5),
@@ -204,15 +231,31 @@ def check_kernels(k1_shapes, k2_shape, device, iters: int = 10):
         plain_ms = cuda_ms(lambda: da._ctx_reference(*args), max(2, iters // 4))
         flops, nbytes = k1_cost(s)
         b_ms, b_by = bound_ms(flops, nbytes)
-        log(f"K1 depth_attention_ctx W={W} D={D} Cc={Cc} Ci={Ci} B={B}: rel_l2={err:.3e} "
-            f"max_abs={mae:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
-            f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) x{s['per_step']}/step")
+        log(f"K1 depth_attention_ctx ({path}) W={W} D={D} Cc={Cc} Ci={Ci} B={B}: "
+            f"rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) "
+            f"x{s['per_step']}/step")
         if not err <= REL_L2_KERNEL:
-            raise AssertionError(f"K1 at W={W}: rel L2 {err:.3e} > {REL_L2_KERNEL}")
-        rows.append(dict(shape=f"W={W},D={D},Cc={Cc}", per_step=s["per_step"], ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, flops=flops, bytes=nbytes,
-                         rel_l2=err, max_abs_err=mae))
-    results["depth_attention_ctx"] = rows
+            raise AssertionError(f"K1 ({path}) at W={W} B={B}: rel L2 {err:.3e} > "
+                                 f"{REL_L2_KERNEL}")
+        rows.append(dict(shape=f"B={B},W={W},D={D},Cc={Cc}", path=path,
+                         per_step=s["per_step"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         flops=flops, bytes=nbytes, rel_l2=err, max_abs_err=mae))
+    return rows
+
+
+def check_kernels(k1_shapes, k2_shape, device, iters: int = 10):
+    """Phase 2: every kernel against its plain version at the main path's
+    shapes, bf16. Returns {name: result} for the kernels line."""
+    from morphablediffusion_torch.ops import depth_attention as da
+    from morphablediffusion_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    g = torch.Generator(device).manual_seed(0)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=device) * std).bfloat16()
+    results = {}
+
+    results["depth_attention_ctx"] = check_k1(k1_shapes, device, rn, iters, "serving")
 
     s = k2_shape
     B, L, heads, hd = s["B"], s["L"], s["heads"], s["hd"]
@@ -223,36 +266,276 @@ def check_kernels(k1_shapes, k2_shape, device, iters: int = 10):
     err, mae = rel_l2(out, plain), float((out.float() - plain.float()).abs().max())
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, heads), iters)
     plain_ms = cuda_ms(lambda: fa.attention_reference(q, k, v, heads), max(2, iters // 4))
+    # serving passes no row-statistics pointer; the cost of writing them
+    lse_ms = cuda_ms(lambda: fa._forward(q, k, v, heads, with_lse=True), iters)
     qh, kh, vh = (t.reshape(B, L, heads, hd).transpose(1, 2).contiguous() for t in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
     flops, nbytes = k2_cost(s)
     b_ms, b_by = bound_ms(flops, nbytes)
-    log(f"K2 flash_attention B={B} L={L} heads={heads} hd={hd}: rel_l2={err:.3e} "
-        f"max_abs={mae:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) "
-        f"x{s['per_step']}/step")
+    log(f"K2 flash_attention (serving) B={B} L={L} heads={heads} hd={hd}: rel_l2={err:.3e} "
+        f"max_abs={mae:.3e} ms={ms:.4f} (with the row logsumexp {lse_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
+        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) x{s['per_step']}/step")
     if not err <= REL_L2_KERNEL:
         raise AssertionError(f"K2: rel L2 {err:.3e} > {REL_L2_KERNEL}")
     results["flash_attention"] = [dict(
-        shape=f"B={B},L={L},heads={heads},hd={hd}", per_step=s["per_step"], ms=ms,
+        shape=f"B={B},L={L},heads={heads},hd={hd}", path="serving", per_step=s["per_step"], ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, flops=flops, bytes=nbytes, rel_l2=err,
         max_abs_err=mae, library_ms=lib_ms)]
     return results
 
 
+def train_shapes(cfg, B: int):
+    """The shapes the training path gives each kernel, with per_step its
+    launches per training step: every forward twice under remat (the
+    forward and its recompute in the backward pass). The DepthTransformers
+    of frustum width >= TRAIN_FUSED_MIN_WIDTH take K1, the others K3; K3's
+    other plain-path widths are checked too but do not run in training
+    (per_step 0). K2 and its backward kernels (bwd_per_step, once per ds=1
+    self-attention) see one target view per sample."""
+    from morphablediffusion_torch.models.unet import TRAIN_FUSED_MIN_WIDTH
+
+    m, u = cfg.model, cfg.model.unet
+    fwd = 2 if u.use_checkpoint else 1
+    serving_k1, serving_k2 = main_path_shapes(cfg)
+    k1 = [dict(s, B=B, per_step=fwd * s["per_step"]) for s in serving_k1
+          if s["W"] >= TRAIN_FUSED_MIN_WIDTH]
+    k3 = [dict(B=B, W=s["W"], D=s["D"], C=s["Ci"], heads=s["heads"],
+               per_step=0 if s["W"] >= TRAIN_FUSED_MIN_WIDTH else fwd * s["per_step"])
+          for s in serving_k1]
+    k2 = dict(serving_k2, B=B, per_step=fwd * serving_k2["per_step"],
+              bwd_per_step=serving_k2["per_step"])
+    return dict(k1=k1, k3=k3, k2=k2)
+
+
+def k3_cost(s):
+    """Depth attention on projected q, k, v: q.k and attn.v over D depths,
+    q, k, v read once and out written once (bf16)."""
+    B, C, D, S = s["B"], s["C"], s["D"], s["W"] ** 2
+    return 4 * B * C * D * S, 2 * (2 * B * C * S + 2 * B * C * D * S)
+
+
+def k2_bwd_cost(s, which: str):
+    """dkv: S^T, dV, dP^T, dK (4 products); dq: S, dP, dQ (3 products), each
+    2*L^2*hd per (sample, head). Bytes: q, k, v, dO read and the gradients
+    written once in bf16, lse and di read once in fp32."""
+    B, L, H, hd = s["B"], s["L"], s["heads"], s["hd"]
+    n, stats = B * L * H * hd, 2 * 4 * B * H * L
+    if which == "dkv":
+        return 8 * B * H * L * L * hd, 2 * (4 * n + 2 * n) + stats
+    return 6 * B * H * L * L * hd, 2 * (4 * n + n) + stats
+
+
+def check_train_kernels(shapes, device, iters: int = 10):
+    """Phase 2 at the training path's shapes (`train_shapes`): K1's and K2's
+    forward against their plain versions; K3 against `_reference` at every
+    plain-path shape; K2-dkv and K2-dq against the gradients of the plain
+    version by autograd; bf16, relative L2 1e-2. The yardsticks:
+    F.scaled_dot_product_attention (K2's forward), the same over each
+    pixel's D depths (K3, on tensors permuted beforehand) and its backward
+    (K2-dkv and K2-dq: the one call computes dq, dk and dv)."""
+    from morphablediffusion_torch.ops import depth_attention as da
+    from morphablediffusion_torch.ops import flash_attention as fa
+    import torch.nn.functional as F
+
+    g = torch.Generator(device).manual_seed(1)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=device) * std).bfloat16()
+    results = {"depth_attention": []}
+
+    with torch.no_grad():
+        results["depth_attention_ctx"] = check_k1(shapes["k1"], device, rn, iters, "training")
+        for s in shapes["k3"]:
+            B, W, D, C, heads = s["B"], s["W"], s["D"], s["C"], s["heads"]
+            S, hd = W * W, C // heads
+            q, k, v = rn(B, C, W, W), rn(B, C, D, W, W), rn(B, C, D, W, W)
+            out, plain = da.attention_kernel(q, k, v, heads), da._reference(q, k, v, heads)
+            torch.cuda.synchronize()
+            err, mae = rel_l2(out, plain), float((out.float() - plain.float()).abs().max())
+            ms = cuda_ms(lambda: da.attention_kernel(q, k, v, heads), iters)
+            plain_ms = cuda_ms(lambda: da._reference(q, k, v, heads), max(2, iters // 4))
+            qs = q.reshape(B, heads, hd, S).permute(0, 3, 1, 2).reshape(B * S, heads, 1, hd)
+            kv = [t.reshape(B, heads, hd, D, S).permute(0, 4, 1, 3, 2).reshape(
+                B * S, heads, D, hd).contiguous() for t in (k, v)]
+            qs = qs.contiguous()
+            lib = F.scaled_dot_product_attention(qs, *kv).reshape(B, S, C).transpose(1, 2)
+            lib_err = rel_l2(lib.reshape(q.shape), plain)
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, *kv), iters)
+            flops, nbytes = k3_cost(s)
+            b_ms, b_by = bound_ms(flops, nbytes)
+            log(f"K3 depth_attention W={W} D={D} C={C} B={B}: rel_l2={err:.3e} "
+                f"max_abs={mae:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
+                f"(sdpa rel_l2 {lib_err:.2e}) bound_ms={b_ms:.5f} ({b_by}; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) x{s['per_step']}/step")
+            if not (err <= REL_L2_KERNEL and lib_err <= REL_L2_KERNEL):
+                raise AssertionError(f"K3 at W={W}: rel L2 {err:.3e} (sdpa {lib_err:.3e}) "
+                                     f"> {REL_L2_KERNEL}")
+            results["depth_attention"].append(dict(
+                shape=f"B={B},W={W},D={D},C={C}", path="training", per_step=s["per_step"],
+                ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, flops=flops, bytes=nbytes, rel_l2=err, max_abs_err=mae,
+                library_ms=lib_ms))
+
+    s = shapes["k2"]
+    B, L, heads, hd = s["B"], s["L"], s["heads"], s["hd"]
+    q, k, v, dout = (rn(B, L, heads * hd) for _ in range(4))
+    with torch.no_grad():
+        out, lse = fa._forward(q, k, v, heads, with_lse=True)
+        di = fa.row_dot(out, dout, heads)
+        dk, dv = fa.backward_dkv(q, k, v, dout, lse, di, heads)
+        dq = fa.backward_dq(q, k, v, dout, lse, di, heads)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ref_out = fa.attention_reference(*leaves, heads)
+    ref = torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    fwd_err = rel_l2(out, ref_out)
+    fwd_mae = float((out.float() - ref_out.detach().float()).abs().max())
+    errs = {"dq": rel_l2(dq, ref[0]), "dk": rel_l2(dk, ref[1]), "dv": rel_l2(dv, ref[2])}
+    maes = {n: float((a.float() - b.float()).abs().max())
+            for n, a, b in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
+    lse_err = rel_l2(lse, fa.logsumexp_reference(q, k, heads))
+    with torch.no_grad():
+        dkv_ms = cuda_ms(lambda: fa.backward_dkv(q, k, v, dout, lse, di, heads), iters)
+        dq_ms = cuda_ms(lambda: fa.backward_dq(q, k, v, dout, lse, di, heads), iters)
+        fwd_lse_ms = cuda_ms(lambda: fa._forward(q, k, v, heads, with_lse=True), iters)
+        fwd_ms = cuda_ms(lambda: fa._forward(q, k, v, heads, with_lse=False), iters)
+        plain_fwd_ms = cuda_ms(lambda: fa.attention_reference(q, k, v, heads), max(2, iters // 4))
+    plain_iters = max(2, iters // 4)
+    plain_dkv_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves[1:], dout,
+                                                       retain_graph=True), plain_iters)
+    plain_dq_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves[:1], dout,
+                                                      retain_graph=True), plain_iters)
+    qh, kh, vh = (t.detach().reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+                  .requires_grad_(True) for t in (q, k, v))
+    with torch.no_grad():
+        lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh)
+    douth = dout.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), douth,
+                                                 retain_graph=True), iters)
+    flops, nbytes = k2_cost(s)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    log(f"K2 flash_attention (training) B={B} L={L} heads={heads} hd={hd}: rel_l2="
+        f"{fwd_err:.3e} max_abs={fwd_mae:.3e} ms={fwd_lse_ms:.4f} with the row logsumexp "
+        f"(without {fwd_ms:.4f}) plain_ms={plain_fwd_ms:.4f} sdpa_ms={lib_fwd_ms:.4f} "
+        f"bound_ms={b_ms:.5f} ({b_by}) x{s['per_step']}/step")
+    log(f"K2 backward B={B} L={L} heads={heads} hd={hd}: rel_l2 dq={errs['dq']:.3e} "
+        f"dk={errs['dk']:.3e} dv={errs['dv']:.3e}; lse rel_l2={lse_err:.2e}; "
+        f"dkv_ms={dkv_ms:.4f} dq_ms={dq_ms:.4f} plain dkv_ms={plain_dkv_ms:.4f} "
+        f"plain dq_ms={plain_dq_ms:.4f} sdpa_backward_ms={lib_ms:.4f} "
+        f"x{s['bwd_per_step']}/step")
+    if not (fwd_err <= REL_L2_KERNEL and max(errs.values()) <= REL_L2_KERNEL
+            and lse_err <= 1e-4):
+        raise AssertionError(f"K2 at B={B}: forward rel L2 {fwd_err:.3e}, backward {errs}, "
+                             f"lse {lse_err:.2e}")
+    results["flash_attention"] = [dict(
+        shape=f"B={B},L={L},heads={heads},hd={hd}", path="training", per_step=s["per_step"],
+        ms=fwd_lse_ms, plain_ms=plain_fwd_ms, bound_ms=b_ms, flops=flops, bytes=nbytes,
+        rel_l2=fwd_err, max_abs_err=fwd_mae, library_ms=lib_fwd_ms)]
+    for name, which, ms, plain_ms, err, mae in (
+            ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_dkv_ms,
+             max(errs["dk"], errs["dv"]), max(maes["dk"], maes["dv"])),
+            ("flash_attention_bwd_dq", "dq", dq_ms, plain_dq_ms, errs["dq"], maes["dq"])):
+        flops, nbytes = k2_bwd_cost(s, which)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        log(f"  {name}: bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB)")
+        results[name] = [dict(shape=f"B={B},L={L},heads={heads},hd={hd}", path="training",
+                              per_step=s["bwd_per_step"], ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms,
+                              flops=flops, bytes=nbytes, rel_l2=err, max_abs_err=mae,
+                              library_ms=lib_ms)]
+    return results
+
+
+def group_norm_census(model, batch):
+    """Every GroupNorm call that a full-width serving step repeats (the UNet's
+    and the conditioning nets'; not the VAE encode of `one_step`'s
+    preparation, which runs once per avatar), counted by (x shape, dtype,
+    groups, activation, shifted)."""
+    from morphablediffusion_torch.models.layers import GroupNorm
+
+    counts = {}
+
+    def hook(mod, args, kwargs):
+        x = args[0]
+        shifted = (args[1] if len(args) > 1 else kwargs.get("shift")) is not None
+        key = (tuple(x.shape), x.dtype, mod.num_groups, mod.act, shifted)
+        counts[key] = counts.get(key, 0) + 1
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for part in (model.unet, model.spatial_volume)
+               for m in part.modules() if isinstance(m, GroupNorm)]
+    try:
+        with torch.inference_mode():
+            one_step(model, batch)
+    finally:
+        for h in handles:
+            h.remove()
+    return counts
+
+
+# fp32 operations per element of the GroupNorm kernel: statistics (add,
+# multiply-add), the affine apply (one fma), and the activation
+GN_OPS = {None: 5, "relu": 6, "silu": 9}
+
+
+def check_group_norm(counts, device, iters: int = 10):
+    """K4 is not ported yet (ROADMAP B4): the numbers its row needs, at the
+    most frequent GroupNorm call of a serving step. Its bound (bytes: x read
+    and y written once, gamma and beta, the shift; operations at the fp32
+    peak outside the tensor cores), the port's plain version's time, and as
+    the yardstick F.group_norm followed by the activation (one library call
+    for the norm; the shift added beforehand, outside the timing)."""
+    from morphablediffusion_torch.ops.group_norm import _ACTS, group_norm_shifted
+    import torch.nn.functional as F
+
+    (shape, dtype, groups, act, shifted), per_step = max(counts.items(), key=lambda kv: kv[1])
+    g = torch.Generator(device).manual_seed(4)
+    B, C = shape[:2]
+    x = torch.randn(shape, generator=g, device=device).to(dtype)
+    gamma = 1 + 0.1 * torch.randn(C, generator=g, device=device)
+    beta = 0.1 * torch.randn(C, generator=g, device=device)
+    shift = torch.randn(B, C, generator=g, device=device) if shifted else None
+    view = (B, C) + (1,) * (len(shape) - 2)
+    x_lib = x if shift is None else (x.float() + shift.reshape(view)).to(dtype)
+    gl, bl = gamma.to(dtype), beta.to(dtype)
+    plain = group_norm_shifted(x, shift, gamma, beta, groups, 1e-5, act)
+    lib = _ACTS[act](F.group_norm(x_lib, groups, gl, bl, 1e-5))
+    torch.cuda.synchronize()
+    err = rel_l2(lib, plain)
+    plain_ms = cuda_ms(lambda: group_norm_shifted(x, shift, gamma, beta, groups, 1e-5, act),
+                       iters)
+    lib_ms = cuda_ms(lambda: F.group_norm(x_lib, groups, gl, bl, 1e-5), iters)
+    n = x.numel()
+    nbytes = 2 * n * x.element_size() + 8 * C + (4 * B * C if shifted else 0)
+    flops = GN_OPS[act] * n
+    b_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    b_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    total = sum(counts.values())
+    log(f"K4 group_norm (not ported) at its most frequent call, x {shape} {dtype} groups="
+        f"{groups} act={act} shifted={shifted}, x{per_step}/step of {total} GroupNorm "
+        f"calls per step ({len(counts)} shapes): bound_ms={b_ms:.5f} ({b_by}; "
+        f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB) plain_ms={plain_ms:.4f} "
+        f"F.group_norm_ms={lib_ms:.4f} (with the activation: rel_l2 vs plain {err:.2e})")
+    if not err <= REL_L2_KERNEL:
+        raise AssertionError(f"F.group_norm vs the plain GroupNorm: rel L2 {err:.3e}")
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route both kernel wrappers to their plain versions on the card (for
-    the step comparison only; the port has no such switch)."""
+    """Route every kernel wrapper to its plain version on the card (for the
+    step comparisons only; the port has no such switch). Autograd
+    differentiates the plain versions."""
     from morphablediffusion_torch.ops import depth_attention as da
     from morphablediffusion_torch.ops import flash_attention as fa
 
-    saved = da.ctx_attention, fa.flash_attention
-    da.ctx_attention, fa.flash_attention = da._ctx_reference, fa.attention_reference
+    saved = da.ctx_attention, da.depth_attention, fa.flash_attention
+    da.ctx_attention, da.depth_attention, fa.flash_attention = (
+        da._ctx_reference, da._reference, fa.attention_reference)
     try:
         yield
     finally:
-        da.ctx_attention, fa.flash_attention = saved
+        da.ctx_attention, da.depth_attention, fa.flash_attention = saved
 
 
 def one_step(model, batch, index: int = 25):
@@ -274,13 +557,11 @@ def one_step(model, batch, index: int = 25):
     return eps
 
 
-def profile_step(sampler, batch, index: int = 25, top: int = 15):
+def profile_step(sampler, batch, index: int = 25):
     """Phase 5: torch.profiler over one denoising step (predict_eps_cfg and
     ddim_step at DDIM index `index`), after a warm-up step. Prints the
     device's busy and idle share of the step and its kernel time by group
     and by name."""
-    from torch.profiler import ProfilerActivity, profile
-
     from morphablediffusion_torch.ops import schedules
 
     model = sampler.model
@@ -291,53 +572,66 @@ def profile_step(sampler, batch, index: int = 25, top: int = 15):
     t = torch.full((1,), int(sampler.timesteps[index]), dtype=torch.int64, device=dev)
     with torch.inference_mode():
         prep = model.prepare_inference(batch)
-        step = lambda: schedules.ddim_step(
+        profile_report("phase 5 one denoising step", lambda: schedules.ddim_step(
             x, model.predict_eps_cfg(x, t, prep["clip_embed"], prep["x_input"],
                                      prep["v_embed"], batch, m.cfg_scale),
-            index, sampler.ddim, noise)
-        step()
-        torch.cuda.synchronize()
+            index, sampler.ddim, noise))
+
+
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    for key, group in (("depth_ctx_kernel", "K1 depth_attention_ctx"),
+                       ("flash_fwd_kernel", "K2 flash_attention"),
+                       ("flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
+                       ("flash_bwd_dq_kernel", "K2-dq flash_attention_bwd"),
+                       ("depth_attn_kernel", "K3 depth_attention")):
+        if key in name:
+            return group
+    if any(w in low for w in ("conv", "fprop", "dgrad", "wgrad", "implicit")):
+        return "convolution (cuDNN)"
+    if any(w in low for w in ("gemm", "nvjet", "matmul", "cublas")):
+        return "matmul (cuBLAS)"
+    if "grid_sampler" in low:
+        return "grid_sample"
+    if "reduce" in low or "norm" in low:
+        return "reductions and norms"
+    if "adam" in low or "foreach" in low:
+        return "optimizer (AdamW)"
+    return "elementwise and other"
+
+
+def profile_report(label: str, step, top: int = 15):
+    """Run step() once as a warm-up, once unprofiled and once under
+    torch.profiler; print the device's busy and idle share of the
+    unprofiled step and its kernel time by group and by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
-        plain_wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kern:
         raise AssertionError("torch.profiler recorded no device activity")
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
     span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
-
-    def group(name: str) -> str:
-        low = name.lower()
-        if "depth_ctx_kernel" in name:
-            return "K1 depth_attention_ctx"
-        if "flash_fwd_kernel" in name:
-            return "K2 flash_attention"
-        if any(w in low for w in ("conv", "fprop", "dgrad", "wgrad", "implicit")):
-            return "convolution (cuDNN)"
-        if any(w in low for w in ("gemm", "nvjet", "matmul", "cublas")):
-            return "matmul (cuBLAS)"
-        if "grid_sampler" in low:
-            return "grid_sample"
-        if "reduce" in low or "norm" in low:
-            return "reductions and norms"
-        return "elementwise and other"
-
     by_group, by_name = {}, {}
     for e in kern:
         us = e.time_range.elapsed_us() / 1e3
-        gname = group(e.name)
+        gname = kernel_group(e.name)
         by_group[gname] = by_group.get(gname, 0.0) + us
         n, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (n + us, c + 1)
     # the profiler slows the host, not the device: idle share is taken
     # against the unprofiled step
-    log(f"phase 5 one denoising step: {plain_wall * 1e3:.2f} ms unprofiled, "
+    log(f"{label}: {plain_wall * 1e3:.2f} ms unprofiled, "
         f"{wall * 1e3:.2f} ms profiled; device busy {busy:.2f} ms over a "
         f"{span:.2f} ms device span; idle share of the unprofiled step "
         f"{1 - busy / (plain_wall * 1e3):.3f}; {len(kern)} device activities")
@@ -347,14 +641,127 @@ def profile_step(sampler, batch, index: int = 25, top: int = 15):
         log(f"  {ms:9.3f} ms x{c:<4d} {name[:110]}")
 
 
-def kernel_entry(name, source, replaces, rows, launches):
+# gradient leaves compared between the kernels and the plain versions: K1's
+# q/k/v and projection weights, K3's, K2's (forward and backward), and the
+# frustum net that feeds K1's context
+NAMED_LEAVES = (
+    "unet.out_11_cond.proj_context_conv.weight",
+    "unet.out_11_cond.depth_attn.to_q.weight",
+    "unet.middle_conditions.depth_attn.to_k.weight",
+    "unet.in_1_attn.block_0.attn1.to_q.weight",
+    "unet.in_1_attn.block_0.attn1.to_k.weight",
+    "unet.in_1_attn.block_0.attn1.to_v.weight",
+    "spatial_volume.frustum_volume_feats.conv0.weight",
+)
+
+
+def train_expected_launches(shapes):
+    """Launches per training step of each kernel, from `train_shapes`."""
+    return {"depth_attention_ctx": sum(s["per_step"] for s in shapes["k1"]),
+            "depth_attention": sum(s["per_step"] for s in shapes["k3"]),
+            "flash_attention": shapes["k2"]["per_step"],
+            "flash_attention_bwd_dkv": shapes["k2"]["bwd_per_step"],
+            "flash_attention_bwd_dq": shapes["k2"]["bwd_per_step"]}
+
+
+def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup: int = 2):
+    """Phase 6: full-width training steps on the port's Trainer. Returns the
+    launch counts of the timed run, its ms per step and the peak memory."""
+    from morphablediffusion_torch.training.trainer import Trainer
+
+    B = TRAIN_BATCH
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device=device, seed=0)
+    model = trainer.model
+    batch = flagship_batch(cfg, device, seed=2, B=B, with_targets=True)
+    n_train = sum(p.numel() for _, p in trainer.grad_params())
+    draws = model.draw_training_noise(B, torch.Generator(device).manual_seed(11))
+    params = dict(model.named_parameters())
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model.training_loss(batch, draws=draws)
+        loss.backward()
+        torch.cuda.synchronize()
+        norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
+                              for _, p in trainer.grad_params() if p.grad is not None))
+        return (float(loss.detach()), float(norm),
+                {n: params[n].grad.float().clone() for n in NAMED_LEAVES})
+
+    loss_k, norm_k, leaves_k = loss_and_grads()
+    with plain_versions():
+        loss_p, norm_p, leaves_p = loss_and_grads()
+        # the plain versions once more: how far the nondeterministic
+        # backward alone moves the same numbers
+        loss_r, norm_r, leaves_r = loss_and_grads()
+    model.zero_grad(set_to_none=True)
+    loss_gap = abs(loss_k - loss_p) / abs(loss_p)
+    norm_gap = abs(norm_k - norm_p) / norm_p
+    loss_bound = NOISE_FACTOR * abs(loss_r - loss_p) / abs(loss_p) + REL_TRAIN_LOSS
+    norm_bound = NOISE_FACTOR * abs(norm_r - norm_p) / norm_p + REL_TRAIN_GRAD
+    leaf_gap = {n: rel_l2(leaves_k[n], leaves_p[n]) for n in NAMED_LEAVES}
+    leaf_noise = {n: rel_l2(leaves_r[n], leaves_p[n]) for n in NAMED_LEAVES}
+    leaf_bound = {n: NOISE_FACTOR * leaf_noise[n] + REL_TRAIN_LEAF for n in NAMED_LEAVES}
+    log(f"phase 6 one training loss and backward, B={B} ({n_train / 1e6:.1f} M trainable "
+        f"params): loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {loss_gap:.2e}, bound "
+        f"{loss_bound:.2e}); grad norm kernels {norm_k:.5f} plain {norm_p:.5f} (rel "
+        f"{norm_gap:.2e}, bound {norm_bound:.2e}); plain again: loss rel "
+        f"{abs(loss_r - loss_p) / abs(loss_p):.2e}, grad norm rel "
+        f"{abs(norm_r - norm_p) / norm_p:.2e} ({time.perf_counter() - t0:.1f} s)")
+    for n, e in leaf_gap.items():
+        log(f"  grad rel_l2 kernels vs plain {e:.3e}, plain vs plain {leaf_noise[n]:.3e} "
+            f"(bound {leaf_bound[n]:.3e})  {n}")
+    if not (math.isfinite(loss_k) and loss_gap <= loss_bound and norm_gap <= norm_bound
+            and all(leaf_gap[n] <= leaf_bound[n] for n in NAMED_LEAVES)):
+        raise AssertionError(f"training step kernels vs plain: loss {loss_gap:.2e} (bound "
+                             f"{loss_bound:.2e}), grad norm {norm_gap:.2e} ({norm_bound:.2e}), "
+                             f"leaves {leaf_gap} (bounds {leaf_bound})")
+    del leaves_k, leaves_p, leaves_r
+
+    before = {n: params[n].detach().float().clone() for n in NAMED_LEAVES}
+    for _ in range(warmup):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    losses = [trainer.train_step(batch)["loss"] for _ in range(steps)]
+    ev1.record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = {k.name: k.launches for k in kernels}
+    ms = ev0.elapsed_time(ev1) / steps
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    moved = [n for n in NAMED_LEAVES if not torch.equal(before[n], params[n].detach().float())]
+    log(f"phase 6 training: {ms:.2f} ms per step (CUDA events, mean of {steps} after "
+        f"{warmup} warm-up), {host_ms:.2f} ms host clock; {B / ms * 1e3:.3f} samples/s; peak "
+        f"allocated {peak / 2**30:.2f} GiB; losses {[round(x, 5) for x in losses]}; "
+        f"launches over {steps} steps {launches} (expected per step {expected})")
+    if not all(math.isfinite(x) for x in losses) or len(moved) != len(NAMED_LEAVES):
+        raise AssertionError(f"training: losses {losses}, parameters moved {moved}")
+    if launches != {n: steps * c for n, c in expected.items()}:
+        raise AssertionError(f"training launch counts {launches}, expected {steps} x {expected}")
+    profile_report("phase 6 one profiled training step", lambda: trainer.train_step(batch))
+    return launches, ms, peak
+
+
+def kernel_entry(name, source, replaces, rows, launches, path, run, train_per_step):
     """One kernel of the kernels line. ms, plain_ms, bound_ms and
-    library_ms are per launch, averaged over the main path's launch mix
-    (so launches * ms is the kernel's time per avatar)."""
-    n = sum(r["per_step"] for r in rows)
-    mean = lambda key: sum(r["per_step"] * r[key] for r in rows) / n
+    library_ms are per launch, averaged over the launch mix of the rows of
+    `path` (serving or training), the path of `run`, the run that counted
+    `launches` (the avatar or the timed training steps): launches * ms is
+    the kernel's time there. train_per_step is its launches per training
+    step, counted in the timed training steps. Every row, of either path,
+    is listed under shapes."""
+    mix = [r for r in rows if r["path"] == path]
+    n = sum(r["per_step"] for r in mix)
+    mean = lambda key: sum(r["per_step"] * r[key] for r in mix) / n
     flops, nbytes = mean("flops"), mean("bytes")
-    lib = rows[0].get("library_ms")
+    lib = mix[0].get("library_ms")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
@@ -362,8 +769,9 @@ def kernel_entry(name, source, replaces, rows, launches):
         "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
         "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
         "library_ms": None if lib is None else mean("library_ms"),
-        "shapes": [{k: r[k] for k in ("shape", "per_step", "ms", "plain_ms", "bound_ms",
-                                      "rel_l2")} for r in rows],
+        "run": run, "train_launches_per_step": train_per_step,
+        "shapes": [{k: r[k] for k in ("shape", "path", "per_step", "ms", "plain_ms",
+                                      "bound_ms", "rel_l2")} for r in rows],
     }
 
 
@@ -391,7 +799,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    kernels = (da.KERNEL, fa.KERNEL)
+    kernels = (da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL, fa.BWD_DQ_KERNEL, da.DEPTH_KERNEL)
     _cuda.build(kernels)
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
@@ -400,11 +808,15 @@ def main() -> int:
 
     cfg = Config()
     k1_shapes, k2_shape = main_path_shapes(cfg)
+    tshapes = train_shapes(cfg, TRAIN_BATCH)
 
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions, at the serving shapes and at
+    # the training shapes
     t0 = time.perf_counter()
     with torch.inference_mode():
         checked = check_kernels(k1_shapes, k2_shape, device)
+    for name, rows in check_train_kernels(tshapes, device).items():
+        checked[name] = checked.get(name, []) + rows
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
 
     # 3. one full-width step: bf16 with the kernels, bf16 with the plain
@@ -434,6 +846,7 @@ def main() -> int:
                              f"rel L2 {step_err:.3e} (bound {REL_L2_STEP}); vs fp32 "
                              f"{err_k:.3e} (bound {STEP_VS_FP32_RATIO} x {err_p:.3e})")
     del eps, eps_plain, eps32
+    check_group_norm(group_norm_census(model, batch), device)
 
     # 4. the full avatar
     sampler = SyncDDIMSampler(model, sample_steps=cfg.model.sample_steps)
@@ -456,8 +869,9 @@ def main() -> int:
     launches = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated()
     steps = cfg.model.sample_steps
-    want = {"depth_attention_ctx": steps * sum(s["per_step"] for s in k1_shapes),
-            "flash_attention": steps * k2_shape["per_step"]}
+    want = {k.name: 0 for k in kernels}  # serving launches no training kernel
+    want.update(depth_attention_ctx=steps * sum(s["per_step"] for s in k1_shapes),
+                flash_attention=steps * k2_shape["per_step"])
     log(f"phase 4 avatar: {ev0.elapsed_time(ev1) / 1e3:.3f} s (CUDA events), "
         f"{host_s:.3f} s host clock; peak allocated {peak / 2**30:.2f} GiB; "
         f"launches {launches} (expected {want})")
@@ -470,21 +884,42 @@ def main() -> int:
     if tuple(images.shape) != shape or not finite or not spread > 0:
         raise AssertionError("the avatar's images are not finite, non-constant and "
                              f"of shape {shape}")
-    if launches != want or want != {"depth_attention_ctx": 500, "flash_attention": 250}:
+    if (launches != want or want["depth_attention_ctx"] != 500
+            or want["flash_attention"] != 250):
         raise AssertionError(f"launch counts {launches}, expected {want}")
 
     # 5. where one denoising step's device time goes
     profile_step(sampler, batch)
+    del sampler, model, images, latents
+    torch.cuda.empty_cache()
 
-    # 6. results
+    # 6. training
+    expected = train_expected_launches(tshapes)
+    train_launches, train_ms, train_peak = train_phase(cfg, device, kernels, expected)
+
+    # 7. results
+    train_run = f"training: {TRAIN_STEPS} steps of B={TRAIN_BATCH} ({train_ms:.2f} ms each)"
+    per_step = {n: c // TRAIN_STEPS for n, c in train_launches.items()}
+    serving = lambda name: (launches[name], "serving", "avatar")
+    training = lambda name: (train_launches[name], "training", train_run)
     entries = [
-        kernel_entry("depth_attention_ctx", "morphablediffusion_torch/csrc/depth_attention_ctx.cu",
-                     "morphablediffusion_tpu/ops/depth_attention.py:236",
-                     checked["depth_attention_ctx"], launches["depth_attention_ctx"]),
-        kernel_entry("flash_attention", "morphablediffusion_torch/csrc/flash_attention.cu",
-                     "morphablediffusion_tpu/models/layers.py:277",
-                     checked["flash_attention"], launches["flash_attention"]),
+        kernel_entry(name, f"morphablediffusion_torch/csrc/{source}", replaces, checked[name],
+                     *run(name), per_step[name])
+        for name, source, replaces, run in (
+            ("depth_attention_ctx", "depth_attention_ctx.cu",
+             "morphablediffusion_tpu/ops/depth_attention.py:236", serving),
+            ("flash_attention", "flash_attention.cu",
+             "morphablediffusion_tpu/models/layers.py:277", serving),
+            ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:796 "
+             "(_flash_attention_dkv_kernel, via models/layers.py:277)", training),
+            ("flash_attention_bwd_dq", "flash_attention_bwd.cu",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1146 "
+             "(_flash_attention_dq_kernel, via models/layers.py:277)", training),
+            ("depth_attention", "depth_attention.cu",
+             "morphablediffusion_tpu/ops/depth_attention.py:56", training))
     ]
+    log(f"training peak allocated {train_peak / 2**30:.2f} GiB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     for e in entries:
         if not all(math.isfinite(e[k]) for k in ("ms", "plain_ms", "bound_ms")):

@@ -1,0 +1,177 @@
+"""Training CLI of the PyTorch port.
+
+Counterpart of the JAX package's `apps/train.py`: flags -b/-l/-n/-s/--resume/
+--max_steps/--profile_steps, the step log line, a validation contact sheet
+every `val_check_interval` steps (the DDIM sampler with the config's
+`batch_view_num`), rolling and snapshot checkpoints, the refusal to
+overwrite an existing run, and the final checkpoint. One card; `--device cpu`
+runs it on the CPU (a rehearsal at a tiny config).
+
+    python -m morphablediffusion_torch.apps.train -b configs/facescape.yaml \
+        -l runs -n facescape [--resume] [--device cpu]
+
+Not ported yet: --finetune_from and --vae_from (ROADMAP A12), --rss_restart_gb
+(A12) and the THuman dataset (A10); each raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def build_datasets(cfg):
+    """(train, val) FaceScape datasets of the config."""
+    from morphablediffusion_torch.data.facescape import FaceScapeDataset, train_val_uids
+
+    d, m = cfg.data, cfg.model
+    if d.dataset != "facescape":
+        raise NotImplementedError(f"dataset {d.dataset!r}: the port reads FaceScape "
+                                  "only; THuman is ROADMAP A10")
+    train_ids, val_ids = train_val_uids()
+    if d.uids:
+        train_ids = list(d.uids)
+    if d.val_uids:
+        val_ids = list(d.val_uids)
+    extra = {"flame_assets_dir": d.flame_assets_dir} if d.flame_assets_dir else {}
+    mk = lambda ids, seed: FaceScapeDataset(
+        d.data_dir, ids, mesh_topology=d.mesh_topology,
+        shuffled_expression=d.shuffled_expression, image_size=m.image_size,
+        num_views=m.view_num, max_vertices=m.max_vertices, seed=seed, **extra)
+    return mk(train_ids, d.seed), mk(val_ids, d.seed + 1)
+
+
+def save_val_sheet(images, batch, path):
+    """Contact sheet: one row per sample, input | generated views."""
+    from PIL import Image
+
+    to8 = lambda x: ((np.clip(np.asarray(x), -1, 1) + 1) * 127.5).astype(np.uint8)
+    rows = []
+    for b in range(images.shape[0]):
+        tiles = [to8(batch["input_image"][b])] + [to8(images[b, n])
+                                                  for n in range(images.shape[1])]
+        rows.append(np.concatenate(tiles, axis=1))
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.concatenate(rows, axis=0)).save(path)
+
+
+def to_device(batch, device):
+    return {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+            for k, v in batch.items()}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("-b", "--base", type=str, required=True, help="config yaml")
+    parser.add_argument("-l", "--logdir", type=str, default="runs")
+    parser.add_argument("-n", "--name", type=str, default="run")
+    parser.add_argument("-s", "--seed", type=int, default=6033)
+    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--max_steps", type=int, default=0, help="override config")
+    parser.add_argument("--profile_steps", type=str, default="",
+                        help="trace steps with torch.profiler, e.g. '10-15'")
+    parser.add_argument("--device", type=str, default=None,
+                        help="default: the CUDA card (raises without one); 'cpu' "
+                             "runs on the CPU")
+    parser.add_argument("--finetune_from", type=str, default="", help="not ported (A12)")
+    parser.add_argument("--vae_from", type=str, default="", help="not ported (A12)")
+    parser.add_argument("--rss_restart_gb", type=float, default=0.0, help="not ported (A12)")
+    flags = parser.parse_args(argv)
+    for flag, item in (("finetune_from", "A12"), ("vae_from", "A12"),
+                       ("rss_restart_gb", "A12")):
+        if getattr(flags, flag):
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
+
+    from morphablediffusion_torch.data.loader import PrefetchLoader
+    from morphablediffusion_torch.sampling import SyncDDIMSampler
+    from morphablediffusion_torch.training.trainer import Trainer
+    from morphablediffusion_torch.utils import resolve_device
+    from morphablediffusion_torch.utils.checkpoint import CheckpointManager
+    from morphablediffusion_torch.utils.config import load_config
+
+    cfg = load_config(flags.base)
+    cfg.train.seed = flags.seed
+    if flags.max_steps:
+        cfg.train.max_steps = flags.max_steps
+    device = resolve_device(flags.device)
+
+    run_dir = Path(flags.logdir) / flags.name
+    ckpt = CheckpointManager(run_dir / "ckpt", rolling_every=cfg.train.rolling_checkpoint_every,
+                             snapshot_every=cfg.train.checkpoint_every)
+    ckpt.assert_fresh_or_resume(flags.resume)
+
+    train_ds, val_ds = build_datasets(cfg)
+    trainer = Trainer(cfg, device=device)
+    if flags.resume and ckpt.latest_step() is not None:
+        print(f"resumed from step {ckpt.restore(trainer)}")
+    loader = PrefetchLoader(train_ds, cfg.data.batch_size, seed=cfg.data.seed,
+                            num_workers=cfg.data.num_workers)
+    val_loader = PrefetchLoader(val_ds, cfg.model.output_num, shuffle=False,
+                                num_workers=cfg.data.num_workers)
+    prof_lo = prof_hi = -1
+    if flags.profile_steps:
+        lo, _, hi = flags.profile_steps.partition("-")
+        prof_lo, prof_hi = int(lo), int(hi or lo)
+
+    batches = loader.epochs()
+    sampler = val_batches = prof = None
+    t_last = time.perf_counter()
+    try:
+        while trainer.step < cfg.train.max_steps:
+            if trainer.step == prof_lo:
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA] if device.type == "cuda" else [])
+                prof = profile(activities=acts)
+                prof.__enter__()
+            metrics = trainer.train_step(to_device(next(batches), device))
+            step = metrics["step"] + 1
+            if prof is not None and step - 1 == prof_hi:
+                prof.__exit__(None, None, None)
+                path = run_dir / "profile" / f"steps_{prof_lo}-{prof_hi}.json"
+                path.parent.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(path))
+                prof = None
+                print(f"profiler trace written to {path}")
+
+            if step % cfg.train.log_every == 0:
+                loss = float(metrics["loss"])
+                dt = (time.perf_counter() - t_last) / cfg.train.log_every
+                t_last = time.perf_counter()
+                mem = (torch.cuda.max_memory_allocated(device) / 2**30
+                       if device.type == "cuda" else 0.0)
+                lr = trainer.lr_at(trainer.opt_step)
+                print(f"step {step} loss {loss:.4f} grad_norm "
+                      f"{float(metrics['grad_norm']):.4f} lr {lr:.2e} "
+                      f"{dt * 1000:.0f} ms/step peak {mem:.1f} GiB", flush=True)
+
+            if cfg.train.val_check_interval and step % cfg.train.val_check_interval == 0:
+                if sampler is None:
+                    sampler = SyncDDIMSampler(trainer.model, cfg.model.sample_steps,
+                                              batch_view_num=cfg.model.batch_view_num)
+                    val_batches = val_loader.epochs()
+                val_batch = to_device(next(val_batches), device)
+                gen = torch.Generator(device).manual_seed(step)
+                images, _ = sampler.sample(val_batch, cfg.model.cfg_scale, generator=gen)
+                save_val_sheet(images.cpu().numpy(), {k: v.cpu().numpy()
+                                                      for k, v in val_batch.items()},
+                               run_dir / "images" / "val" / f"{step}.jpg")
+            ckpt.maybe_save(trainer, step)
+        ckpt.maybe_save(trainer, trainer.step, force=True)
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        batches.close()  # stops the producer thread
+        if val_batches is not None:
+            val_batches.close()
+    print("training done")
+
+
+if __name__ == "__main__":
+    main()

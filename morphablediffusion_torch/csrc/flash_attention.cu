@@ -21,6 +21,10 @@
 //  * online softmax in fp32 (running max and sum per row, log2 domain); the
 //    output accumulator lives in shared memory in fp32 and is rescaled per
 //    key tile; the (L, L) matrix never exists.
+//  * for training, the kernel also writes each row's fp32 logsumexp of the
+//    scaled logits, lse (B, num_heads, L), which the backward kernels
+//    (flash_attention_bwd.cu) read to rebuild P without a second softmax;
+//    serving passes a null pointer and writes nothing more.
 // Layout: q, k, v, out are (B, L, num_heads * head_dim) row-major, the layout
 // the to_q/to_k/to_v projections produce, so no transpose is needed.
 
@@ -88,8 +92,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, in
 template <int HDP>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int L,
-                     int num_heads, int head_dim, float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int L, int num_heads, int head_dim,
+                     float scale_log2) {
   using Lt = Layout<HDP>;
   constexpr int LDH = Lt::LDH, LDS = Lt::LDS, LDP = Lt::LDP, LDO = Lt::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -202,18 +207,25 @@ __global__ void __launch_bounds__(NTHREADS)
       out[base + (long)(q0 + row) * row_stride + c] =
           __float2bfloat16(Os[row * LDO + c] / row_l[row]);
   }
+  if (lse != nullptr && lane < 16 && q0 + r_own + lane < L) {
+    // natural-log logsumexp of the scaled logits: (m + log2 l) * ln 2
+    const int row = r_own + lane;
+    lse[(long)blockIdx.y * L + q0 + row] =
+        (row_m[row] + log2f(row_l[row])) * 0.6931471805599453f;
+  }
 }
 
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* out, int batch, int L,
-           int num_heads, int head_dim, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+           int L, int num_heads, int head_dim, float scale, cudaStream_t stream) {
   const int bytes = Layout<HDP>::BYTES;
   cudaFuncSetAttribute(flash_fwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        bytes);
   dim3 grid((L + BQ - 1) / BQ, batch * num_heads);
   flash_fwd_kernel<HDP><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), L, num_heads, head_dim, scale * 1.4426950408889634f);
+      static_cast<bf16*>(out), static_cast<float*>(lse), L, num_heads, head_dim,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -221,17 +233,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch, in
 
 extern "C" {
 
-// q, k, v, out: (batch, L, num_heads * head_dim) bf16, contiguous.
-// head_dim must be a multiple of 8 and at most 64. Returns cudaGetLastError().
-int md_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, int batch,
-                           int L, int num_heads, int head_dim, float scale, void* stream) {
+// q, k, v, out: (batch, L, num_heads * head_dim) bf16, contiguous; lse:
+// (batch, num_heads, L) fp32, or null to skip it. head_dim must be a multiple
+// of 8 and at most 64. Returns cudaGetLastError().
+int md_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                           int batch, int L, int num_heads, int head_dim, float scale,
+                           void* stream) {
   if (head_dim % 8 != 0 || head_dim > 64 || head_dim <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((head_dim + 15) / 16) {
-    case 1: return launch<16>(q, k, v, out, batch, L, num_heads, head_dim, scale, s);
-    case 2: return launch<32>(q, k, v, out, batch, L, num_heads, head_dim, scale, s);
-    case 3: return launch<48>(q, k, v, out, batch, L, num_heads, head_dim, scale, s);
-    default: return launch<64>(q, k, v, out, batch, L, num_heads, head_dim, scale, s);
+    case 1: return launch<16>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
+    case 2: return launch<32>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
+    case 3: return launch<48>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
+    default: return launch<64>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
   }
 }
 

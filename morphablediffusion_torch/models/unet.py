@@ -5,10 +5,16 @@ channels-first (B, C, H, W); frustum volumes are (B, C, D, H, W) and arrive
 in `source_dict` keyed by their width.
 
 At serving (`train=False`) every DepthTransformer takes the fused context
-chain (`ops.depth_attention.depth_attention_ctx`): the Hopper kernel on the
-card, its plain version on the CPU. `train=True` takes the unfused module
-chain (proj_context -> GroupNorm(relu) -> to_k/to_v -> plain depth
-attention), which autograd can differentiate.
+chain (`ops.depth_attention.depth_attention_ctx`, kernel K1). In training
+(`train=True`) the blocks at frustum width >= 8 keep the fused chain and the
+W=4 middle block takes the unfused module chain (proj_context ->
+GroupNorm(relu) -> to_k/to_v -> `depth_attention`, kernel K3): the JAX
+package's training gate (`models/unet.py::_fused_ok`, W >= 8). On the card
+the kernels run inside autograd Functions; on the CPU their plain versions.
+
+`remat=True` (the config's `use_checkpoint`) recomputes every ResBlock,
+SpatialTransformer and DepthTransformer in the backward pass
+(`torch.utils.checkpoint`, non-reentrant). It is separate from `train`.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import Dict, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from morphablediffusion_torch.models.layers import (
     Conv2d,
@@ -35,6 +42,8 @@ from morphablediffusion_torch.ops.embeddings import timestep_embedding
 # reads (width = latent >> index); the middle block reads index 3
 OUT_COND_CTX = {3: 2, 4: 2, 5: 1, 6: 1, 7: 1, 8: 0, 9: 0, 10: 0, 11: 0}
 MIDDLE_COND_CTX = 3
+# training takes the fused depth-context kernel from this frustum width up
+TRAIN_FUSED_MIN_WIDTH = 8
 
 
 class DepthAttention(nn.Module):
@@ -54,10 +63,12 @@ class DepthAttention(nn.Module):
         self.to_out = Linear(inner, inner, bias=False, dtype=dtype)
 
     def forward(self, x, context):
-        q = self.to_q.channels(x)
-        k = self.to_k.channels(context)
-        v = self.to_v.channels(context)
-        return self.to_out.channels(da._reference(q, k, v, self.num_heads))
+        # the kernel takes contiguous NCHW / NCDHW; cuDNN may hand back
+        # channels-last maps
+        q = self.to_q.channels(x).contiguous()
+        k = self.to_k.channels(context).contiguous()
+        v = self.to_v.channels(context).contiguous()
+        return self.to_out.channels(da.depth_attention(q, k, v, self.num_heads))
 
 
 class DepthTransformer(nn.Module):
@@ -86,8 +97,8 @@ class DepthTransformer(nn.Module):
 
     def forward(self, x, context, cfg_doubled: bool = False, train: bool = False,
                 moments=None):
-        """moments: optional ctx_moments(context), shared by the blocks that
-        read the same frustum width."""
+        """moments: ctx_moments(context), shared by the blocks that read the
+        same frustum width, or None to compute it here (fused chain only)."""
         B, Bc = x.shape[0], context.shape[0]
         if cfg_doubled and B != 2 * Bc:
             raise ValueError(f"cfg_doubled expects batch {2 * Bc} (2x context), got {B}")
@@ -98,7 +109,7 @@ class DepthTransformer(nn.Module):
         h = self.proj_in_norm(self.proj_in_conv(xc))
 
         att = self.depth_attn
-        if train:
+        if train and context.shape[-1] < TRAIN_FUSED_MIN_WIDTH:
             c = self.proj_context_norm(self.proj_context_conv.channels(context))
             h = att(h, c)
         else:
@@ -204,31 +215,38 @@ class DepthWiseUNet(nn.Module):
         self.out_conv = Conv2d(ch_in, out_channels, 3, dtype=dtype)
 
     def forward(self, x, timesteps, context, source_dict: Dict[int, torch.Tensor],
-                cfg_doubled: bool = False, train: bool = False):
+                cfg_doubled: bool = False, train: bool = False, remat: bool = False):
         """x: (B, in_ch, H, W); timesteps: (B,); context: (B, M, 768);
         source_dict: {width: (B or B/2, C, D, width, width)}. cfg_doubled
-        declares the CFG doubled-batch contract (conditional half first).
-        Returns fp32 (B, out_ch, H, W)."""
+        declares the CFG doubled-batch contract (conditional half first);
+        train selects the training gate of the DepthTransformers; remat
+        recomputes the blocks in the backward pass. Returns fp32
+        (B, out_ch, H, W)."""
         dt = self.dtype
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dt))
         x = x.to(dt)
         context = context.to(dt)
-        moments = ({} if train else
-                   {w: da.ctx_moments(v) for w, v in source_dict.items()})
+        moments = {w: da.ctx_moments(v) for w, v in source_dict.items()
+                   if not train or w >= TRAIN_FUSED_MIN_WIDTH}
+
+        def run(name, *args):
+            block = getattr(self, name)
+            if remat and torch.is_grad_enabled():
+                return checkpoint(block, *args, use_reentrant=False)
+            return block(*args)
 
         def cond(name, h):
             w = h.shape[-1]
-            return getattr(self, name)(h, source_dict[w], cfg_doubled, train,
-                                       moments.get(w))
+            return run(name, h, source_dict[w], cfg_doubled, train, moments.get(w))
 
         h = self.input_conv(x)
         hs = [h]
         ds, block = 1, 1
         for level in range(len(self.channel_mult)):
             for _ in range(self.num_res_blocks):
-                h = getattr(self, f"in_{block}_res")(h, emb)
+                h = run(f"in_{block}_res", h, emb)
                 if ds in self.attention_ds:
-                    h = getattr(self, f"in_{block}_attn")(h, context)
+                    h = run(f"in_{block}_attn", h, context)
                 hs.append(h)
                 block += 1
             if level != len(self.channel_mult) - 1:
@@ -237,18 +255,18 @@ class DepthWiseUNet(nn.Module):
                 block += 1
                 ds *= 2
 
-        h = self.mid_res0(h, emb)
-        h = self.mid_attn(h, context)
-        h = self.mid_res1(h, emb)
+        h = run("mid_res0", h, emb)
+        h = run("mid_attn", h, context)
+        h = run("mid_res1", h, emb)
         h = cond("middle_conditions", h)
 
         block = 0
         for level in reversed(range(len(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
                 h = torch.cat([h, hs.pop()], dim=1)
-                h = getattr(self, f"out_{block}_res")(h, emb)
+                h = run(f"out_{block}_res", h, emb)
                 if ds in self.attention_ds:
-                    h = getattr(self, f"out_{block}_attn")(h, context)
+                    h = run(f"out_{block}_attn", h, context)
                 if level and i == self.num_res_blocks:
                     h = getattr(self, f"out_{block}_up")(h)
                     ds //= 2

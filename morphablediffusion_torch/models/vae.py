@@ -140,3 +140,10 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z))
+
+
+def sample_diagonal_gaussian(mean, logvar, eps):
+    """A posterior sample mean + exp(logvar / 2) * eps, with the standard
+    normal draw eps in the mean's dtype, as the JAX package draws it
+    (`models/vae.py::sample_diagonal_gaussian`)."""
+    return mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)

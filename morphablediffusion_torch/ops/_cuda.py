@@ -3,7 +3,8 @@
 Each kernel source under `morphablediffusion_torch/csrc/` is compiled with
 `nvcc` for Hopper (`sm_90a`) into its own shared library with a plain C
 interface, at first use, into `build/torch_kernels/` at the repository root,
-and loaded with `ctypes`. Library names carry a hash of the source and the
+and loaded with `ctypes`. A source may hold several entry points (one
+`CudaKernel` each, each with its own launch count); it is built once. Library names carry a hash of the source and the
 flags, so an edited source is rebuilt. Nothing is compiled or loaded when a
 module is imported: the CPU tests import every module.
 
@@ -62,7 +63,7 @@ class CudaKernel:
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 
     def _load(self):
         if self._fn is None:
@@ -89,30 +90,34 @@ class CudaKernel:
 def build(kernels) -> None:
     """Compile every kernel whose library is missing, one nvcc per source,
     all started together; wait for all of them and raise if any failed."""
-    todo = [k for k in kernels if not k.lib_path().exists()]
+    todo = {}
+    for k in kernels:
+        if not k.lib_path().exists():
+            todo.setdefault(k.lib_path(), []).append(k)
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
     try:
-        for k in todo:
-            tmp = k.lib_path().with_name(f"{k.lib_path().name}.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
-            procs.append((k, tmp, time.perf_counter(), subprocess.Popen(
+        for lib, ks in todo.items():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(ks[0].source)]
+            procs.append((ks, lib, tmp, time.perf_counter(), subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         failed = []
-        for k, tmp, t0, p in procs:
-            k.build_log = p.communicate()[0]
-            k.build_seconds = time.perf_counter() - t0
+        for ks, lib, tmp, t0, p in procs:
+            log = p.communicate()[0]
+            for k in ks:
+                k.build_log, k.build_seconds = log, time.perf_counter() - t0
             if p.returncode != 0:
-                failed.append(f"nvcc failed for {k.source}:\n{k.build_log}")
+                failed.append(f"nvcc failed for {ks[0].source}:\n{log}")
             else:
-                os.replace(tmp, k.lib_path())
+                os.replace(tmp, lib)
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:
-        for _, _, _, p in procs:
+        for *_, p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()

@@ -16,10 +16,15 @@ streams the raw context once without writing any (B, C, D, H, W) tensor.
 Layout is channels-first: q (B, Ci, H, W), context (B, Cc, D, H, W), k/v
 (B, C, D, H, W), outputs (B, Ci, H, W). Weights are nn.Linear (out, in).
 
-`ctx_attention` takes the plain version `_ctx_reference` for a tensor on the
-CPU; for a CUDA tensor it launches the kernel or raises. `_reference` is the
-plain depth attention on projected k/v (the JAX package's Pallas `_kernel`,
-whose Hopper port is queued as ROADMAP B2); it serves the training path.
+Training keeps the unfused chain where the fused kernel does not run (the
+W=4 middle block): proj_context -> GroupNorm(relu) -> to_k/to_v ->
+`depth_attention`, whose Hopper kernel `csrc/depth_attention.cu` (K3)
+replaces the JAX package's Pallas `_kernel`.
+
+Every wrapper takes its plain version for a tensor on the CPU, which autograd
+differentiates. For a CUDA tensor it launches the kernel or raises, inside a
+`torch.autograd.Function` whose backward recomputes through the plain
+version, as the JAX package's custom VJPs do (`_bwd`, `_ctx_bwd`).
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ from morphablediffusion_torch.ops import _cuda
 KERNEL = _cuda.CudaKernel(
     "depth_attention_ctx", "depth_attention_ctx.cu", "md_depth_attention_ctx_fwd",
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+DEPTH_KERNEL = _cuda.CudaKernel(
+    "depth_attention", "depth_attention.cu", "md_depth_attention_fwd",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _reference(q, k, v, num_heads: int):
@@ -127,12 +135,109 @@ def ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int):
     return out
 
 
+def _pixels(S: int) -> int:
+    """Pixels per block of the depth-attention kernel."""
+    return 32 if S >= 32 else 16 if S >= 16 else 8
+
+
+def attention_kernel(q, k, v, num_heads: int):
+    """Launch the depth-attention kernel (no autograd): q (B, C, H, W);
+    k, v (B, C, D, H, W); contiguous bf16 on one card, else this raises."""
+    _cuda.check_cuda("depth_attention", torch.bfloat16, q, k, v)
+    B, C, H, W = q.shape
+    D = k.shape[2]
+    if k.shape != (B, C, D, H, W) or v.shape != k.shape or C % num_heads:
+        raise ValueError(f"depth_attention: bad shapes {q.shape} {k.shape} "
+                         f"{v.shape} for {num_heads} heads")
+    S, hd = H * W, C // num_heads
+    P = _pixels(S)
+    if hd > 64 * (128 // P):
+        raise ValueError(f"depth_attention: head_dim {hd} > {64 * (128 // P)} "
+                         f"at H*W={S}")
+    out = torch.empty_like(q)
+    DEPTH_KERNEL.launch(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out),
+                        B, C, D, S, num_heads, P, hd**-0.5, _cuda.stream_of(q))
+    return out
+
+
+def _recompute_grads(fn, inputs, needs, grad_out):
+    """Gradients of fn(*inputs) for the inputs that need one, recomputed
+    through the plain version; the cotangent is cast to the recomputed
+    output's dtype (the kernel's output may differ from it)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+        out = fn(*leaves)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype)))
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+class _DepthAttention(torch.autograd.Function):
+    """Forward: the K3 kernel. Backward: recompute through `_reference`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return attention_kernel(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        heads = ctx.num_heads
+        grads = _recompute_grads(lambda q, k, v: _reference(q, k, v, heads),
+                                 ctx.saved_tensors, ctx.needs_input_grad[:3], g)
+        return grads + (None,)
+
+
+def depth_attention(q, k, v, num_heads: int):
+    """Depth attention on projected q (B, C, H, W), k, v (B, C, D, H, W) ->
+    (B, C, H, W). CPU tensors take `_reference`; CUDA tensors the K3 kernel
+    (contiguous bf16, else this raises), differentiable through
+    `_DepthAttention`."""
+    if not q.is_cuda:
+        return _reference(q, k, v, num_heads)
+    return _DepthAttention.apply(q, k, v, num_heads)
+
+
+def _ctx_full(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv, num_heads: int,
+              num_groups: int, eps: float):
+    """Plain version of `depth_attention_ctx` (the JAX package's `_ctx_full`
+    with use_kernel=False)."""
+    A, B2 = _ctx_affine(mean_x, m2, Wp, gn_scale, gn_bias, num_groups, eps)
+    return _ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, num_heads)
+
+
+class _DepthAttentionCtx(torch.autograd.Function):
+    """Forward: the K1 kernel. Backward: recompute through `_ctx_full` and
+    return gradients for all nine tensor inputs (`_ctx_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, x, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv, num_heads: int,
+                num_groups: int, eps: float):
+        ctx.save_for_backward(q, x, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv)
+        ctx.args = (num_heads, num_groups, eps)
+        A, B2 = _ctx_affine(mean_x, m2, Wp, gn_scale, gn_bias, num_groups, eps)
+        return ctx_attention(q, x, Wp, A, B2, Wk, Wv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.args
+        grads = _recompute_grads(lambda *t: _ctx_full(*t, *args), ctx.saved_tensors,
+                                 ctx.needs_input_grad[:9], g)
+        return grads + (None,) * 3
+
+
 def depth_attention_ctx(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv,
                         num_heads: int, num_groups: int = 8, eps: float = 1e-5):
     """Fused proj_context + GroupNorm(relu) + k/v + depth attention.
 
-    (mean_x, m2) = ctx_moments(ctx); gn_scale/gn_bias (Cc,). Shapes as in
-    `ctx_attention`.
+    (mean_x, m2) = ctx_moments(ctx), computed outside so that the gradient
+    also reaches ctx through them; gn_scale/gn_bias (Cc,). Shapes as in
+    `ctx_attention`. CPU tensors take `_ctx_full`; CUDA tensors the K1
+    kernel, differentiable through `_DepthAttentionCtx`.
     """
-    A, B2 = _ctx_affine(mean_x, m2, Wp, gn_scale, gn_bias, num_groups, eps)
-    return ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, num_heads)
+    if not q.is_cuda:
+        return _ctx_full(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv, num_heads,
+                         num_groups, eps)
+    return _DepthAttentionCtx.apply(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv,
+                                    num_heads, num_groups, eps)

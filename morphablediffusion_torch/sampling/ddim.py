@@ -24,8 +24,11 @@ class SyncDDIMSampler:
     """
 
     def __init__(self, model: MorphableDiffusion, sample_steps: int = 50,
-                 eta: float = 1.0):
+                 eta: float = 1.0, batch_view_num: int = 0):
+        """batch_view_num: views per UNet and VAE-decoder call (0: all);
+        see MorphableDiffusion.predict_eps_cfg."""
         self.model = model
+        self.batch_view_num = batch_view_num
         sched = schedules.make_diffusion_schedule(device=model.device)
         self.ddim = schedules.make_ddim_schedule(sched, sample_steps, eta)
         self.timesteps = schedules.make_ddim_timesteps(sample_steps, sched.num_timesteps)
@@ -52,7 +55,8 @@ class SyncDDIMSampler:
         for index in range(self.ddim.num_steps - 1, -1, -1):
             t = torch.full((B,), int(self.timesteps[index]), dtype=torch.int64, device=dev)
             eps = self.model.predict_eps_cfg(x, t, prep["clip_embed"], prep["x_input"],
-                                             prep["v_embed"], batch, cfg_scale)
+                                             prep["v_embed"], batch, cfg_scale,
+                                             self.batch_view_num)
             noise = None
             if index != 0:
                 noise = (torch.randn(shape, generator=generator, device=dev)
@@ -69,4 +73,4 @@ class SyncDDIMSampler:
         [-1, 1], latents (B, N, h, w, 4))."""
         prep = self.model.prepare_inference(batch)
         latents = self.denoise_latents(batch, prep, cfg_scale, generator, x_init, noises)
-        return self.model.decode_views(latents), latents
+        return self.model.decode_views(latents, self.batch_view_num), latents

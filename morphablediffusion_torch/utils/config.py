@@ -54,8 +54,9 @@ class ModelConfig:
     cfg_scale: float = 2.0
     output_num: int = 8
     # Sampler memory knob (reference morphable_diffusion.py:723): chunk the
-    # per-view frustum+UNet work. The port's sampler runs all views in one
-    # batch (the serving value 0); chunking is not ported yet.
+    # per-view frustum+UNet work. Serving runs all views in one batch (0);
+    # mid-train validation keeps 4 because the card also holds fp32 params
+    # and optimizer moments.
     batch_view_num: int = 4
     finetune_unet: bool = True
     finetune_projection: bool = True

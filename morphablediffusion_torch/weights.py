@@ -1,9 +1,11 @@
-"""Weights of the PyTorch port: the JAX parameter bridge, seeded weights and
-the serving cast.
+"""Weights of the PyTorch port: the JAX parameter bridge (both ways), seeded
+weights and the serving cast.
 
 The port's modules carry the flax parameter names (`unet.in_1_res.norm_in`),
 so a JAX parameter tree maps key by key and `load_state_dict(strict=True)`
-proves that every leaf is covered.
+proves that every leaf is covered. `to_jax_layout` maps the other way, for
+anything shaped like the parameters (gradients, optimizer moments), so they
+compare leaf by leaf with the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from morphablediffusion_torch.utils import resolve_device
 # conv-style and spatially flipped
 _TRANSPOSED = re.compile(r"(^|/)up\d+/conv/kernel$")
 
-_NORMS = (layers.GroupNorm, layers.LayerNorm, MaskedInstanceNorm)
+NORM_MODULES = (layers.GroupNorm, layers.LayerNorm, MaskedInstanceNorm)
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -96,7 +98,7 @@ def seeded_params(model: nn.Module, seed: int) -> nn.Module:
     g = torch.Generator(device=dev).manual_seed(seed)
     for mod_name, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
-            if isinstance(module, _NORMS):
+            if isinstance(module, NORM_MODULES):
                 p.fill_(1.0 if name == "weight" else 0.0)
             elif name == "bias":
                 p.zero_()
@@ -113,8 +115,29 @@ def cast_for_serving(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Cast matmul and conv weights (and biases, embeddings) to `dtype`;
     normalization parameters stay fp32 for the fp32 statistics path."""
     for module in model.modules():
-        if isinstance(module, _NORMS):
+        if isinstance(module, NORM_MODULES):
             continue
         for name, p in module.named_parameters(recurse=False):
             p.data = p.data.to(dtype)
     return model
+
+
+def to_jax_layout(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{port parameter name: tensor shaped like that parameter} (parameters,
+    gradients, AdamW moments) -> {flax path below 'params': fp32 numpy array
+    in the JAX layout}, the inverse of `from_jax_params`."""
+    modules = dict(model.named_modules())
+    out = {}
+    for name, t in tensors.items():
+        mod_name, _, leaf = name.rpartition(".")
+        module = modules[mod_name]
+        a = t.detach().float().cpu().numpy()
+        parts = mod_name.split(".") if mod_name else []
+        if leaf == "weight" and isinstance(module, NORM_MODULES):
+            leaf = "scale"
+        elif leaf == "weight" and isinstance(module, nn.ConvTranspose3d):
+            a, leaf = a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1], "kernel"
+        elif leaf == "weight" and isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+            a, leaf = a.transpose(tuple(range(2, a.ndim)) + (1, 0)), "kernel"
+        out["/".join(parts + [leaf])] = np.ascontiguousarray(a)
+    return out

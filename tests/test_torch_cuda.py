@@ -8,7 +8,8 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 Inputs are bf16 on the card; each kernel is held to its plain PyTorch
 version on the same bf16 inputs within relative L2 1e-2 (the two round the
 bf16 products at different places; chip_smoke.py holds the same bar at the
-main path's shapes).
+main path's shapes); the backward kernels are held to autograd of the plain
+version at the same bar, and the forward's fp32 row logsumexp to 1e-4.
 """
 
 import pytest
@@ -35,7 +36,7 @@ def _randn(g, *shape, std=1.0):
 
 
 def _rel(a, b):
-    a, b = a.float(), b.float()
+    a, b = a.detach().float(), b.detach().float()
     return float((a - b).norm() / b.norm())
 
 
@@ -103,6 +104,82 @@ def test_flash_attention_kernel(dev, B, L, heads, hd):
     assert _rel(out, fa.attention_reference(q, k, v, heads)) <= REL_L2
 
 
+@pytest.mark.parametrize("B,W,D,C,heads", [
+    (8, 4, 6, 1024, 4),     # the training path's W=4 middle block, head_dim 256
+    (2, 32, 48, 128, 4),    # the other plain-path shapes
+    (2, 16, 24, 256, 4),
+    (2, 8, 12, 512, 4),
+    (3, 5, 7, 96, 3),       # ragged pixel tile, odd depth
+])
+def test_depth_attention_kernel(dev, B, W, D, C, heads):
+    g = torch.Generator(dev).manual_seed(4)
+    q, k, v = _randn(g, B, C, W, W), _randn(g, B, C, D, W, W), _randn(g, B, C, D, W, W)
+    before = da.DEPTH_KERNEL.launches
+    out = da.depth_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert da.DEPTH_KERNEL.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert _rel(out, da._reference(q, k, v, heads)) <= REL_L2
+
+
+@pytest.mark.parametrize("B,L,heads,hd", [
+    (8, 1024, 8, 40),  # the training path's shape
+    (1, 1000, 2, 64),  # ragged last tile
+    (2, 200, 3, 16),
+])
+def test_flash_attention_backward_kernels(dev, B, L, heads, hd):
+    """K2-dkv and K2-dq against autograd of the plain version, and the
+    forward's row logsumexp against the plain one."""
+    g = torch.Generator(dev).manual_seed(5)
+    q, k, v, dout = (_randn(g, B, L, heads * hd) for _ in range(4))
+    out, lse = fa._forward(q, k, v, heads, with_lse=True)
+    assert _rel(lse, fa.logsumexp_reference(q, k, heads)) <= 1e-4
+    n_dkv, n_dq = fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, out, lse, dout, heads)
+    torch.cuda.synchronize()
+    assert (fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches) == (n_dkv + 1, n_dq + 1)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.attention_reference(*leaves, heads), leaves, dout)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == torch.bfloat16 and _rel(got, want) <= REL_L2
+
+
+def test_gradients_reach_every_input_through_each_wrapper(dev):
+    """Each CUDA wrapper is an autograd Function: its output keeps the graph
+    and non-zero gradients reach q, k and v (and all nine inputs of the
+    depth-context chain), close to the plain version's."""
+    g = torch.Generator(dev).manual_seed(6)
+
+    def grads(fn, tensors):
+        leaves = [t.detach().requires_grad_(True) for t in tensors]
+        out = fn(*leaves)
+        assert out.grad_fn is not None
+        w = torch.randn(out.shape, generator=g, device=dev)
+        (out.float() * w).sum().backward()
+        return out, [t.grad for t in leaves]
+
+    qkv = [_randn(g, 2, 1024, 2 * 40) for _ in range(3)]
+    _, got = grads(lambda q, k, v: fa.flash_attention(q, k, v, 2), qkv)
+    assert all(t is not None and t.float().abs().sum() > 0 for t in got)
+
+    q, k, v = _randn(g, 2, 64, 4, 4), _randn(g, 2, 64, 6, 4, 4), _randn(g, 2, 64, 6, 4, 4)
+    _, got = grads(lambda q, k, v: da.depth_attention(q, k, v, 4), (q, k, v))
+    assert all(t is not None and t.float().abs().sum() > 0 for t in got)
+
+    B, W, D, Cc, Ci = 2, 8, 6, 32, 64
+    ctx = _randn(g, B, Cc, D, W, W)
+    mean_x, m2 = da.ctx_moments(ctx)
+    nine = [_randn(g, B, Ci, W, W), ctx, mean_x, m2, _randn(g, Cc, Cc, std=Cc ** -0.5),
+            1.0 + 0.1 * torch.randn(Cc, generator=g, device=dev),
+            0.1 * torch.randn(Cc, generator=g, device=dev),
+            _randn(g, Ci, Cc, std=Cc ** -0.5), _randn(g, Ci, Cc, std=Cc ** -0.5)]
+    before = da.KERNEL.launches
+    out, got = grads(lambda *t: da.depth_attention_ctx(*t, 4), nine)
+    assert da.KERNEL.launches == before + 1
+    assert all(t is not None and t.float().abs().sum() > 0 for t in got)
+    assert _rel(out, da._ctx_full(*nine, 4, 8, 1e-5)) <= REL_L2
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     g = torch.Generator(dev).manual_seed(3)
     q, k, v = (_randn(g, 2, 64, 2 * 40) for _ in range(3))
@@ -119,3 +196,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     args = list(_ctx_args(dev, 2, 4, 6, 32, 96, 4))  # head_dim 24
     with pytest.raises(ValueError, match="head_dim"):
         da.ctx_attention(*args)
+    k = _randn(g, 2, 64, 6, 4, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        da.depth_attention(_randn(g, 2, 64, 4, 4), k.transpose(3, 4), k, 4)
+    with pytest.raises(ValueError, match="head_dim"):
+        da.depth_attention(_randn(g, 1, 2048, 6, 6), *(_randn(g, 1, 2048, 2, 6, 6),) * 2, 1)

@@ -1,12 +1,18 @@
-"""Port parity of the two kernel modules' plain versions on the CPU, fp32.
+"""Port parity of the kernel modules' plain versions on the CPU, fp32.
 
 K1 (depth_attention_ctx): the port's plain fused chain against the JAX
 Pallas kernel run in interpret mode and against the JAX unfused module chain
-(2e-4, the JAX package's own bar: tests/test_depth_attention.py). K2 (flash
+(2e-4, the JAX package's own bar: tests/test_depth_attention.py), and its
+gradients for all nine inputs against jax.grad (1e-4). K3
+(depth_attention): forward and gradients against the JAX depth_attention
+under jax.vjp (2e-5). The autograd Functions of the CUDA path, with their
+kernels replaced by the plain versions, against autograd of the plain
+versions (1e-6). K2 (flash
 attention): the port's plain attention against JAX `layers.attention` on the
 CPU (1e-5). On the CPU the wrappers take the plain versions and launch
 nothing."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,13 +104,18 @@ def test_flash_plain_matches_jax_attention(rng, B, L, heads, hd):
 
 
 def test_cpu_wrappers_take_plain_versions_and_launch_nothing(rng):
-    t_da.KERNEL.launches = t_fa.KERNEL.launches = 0
+    kernels = (t_da.KERNEL, t_da.DEPTH_KERNEL, t_fa.KERNEL, t_fa.BWD_DKV_KERNEL,
+               t_fa.BWD_DQ_KERNEL)
+    for k in kernels:
+        k.launches = 0
     a = _ctx_inputs(rng, 1, 3, 2, 4, 16, 32)
     _port_ctx(a, 2)
-    x = tt(rng.normal(size=(1, 1024, 16)))
-    t_layers.attention(x, x, x, 2)
-    assert t_da.KERNEL.launches == 0 and t_fa.KERNEL.launches == 0
-    assert t_da.KERNEL._fn is None and t_fa.KERNEL._fn is None  # nothing built
+    x = tt(rng.normal(size=(1, 1024, 16))).requires_grad_(True)
+    t_layers.attention(x, x, x, 2).sum().backward()
+    q = tt(rng.normal(size=(1, 8, 2, 2))).requires_grad_(True)
+    t_da.depth_attention(q, q[:, :, None], q[:, :, None], 2).sum().backward()
+    assert all(k.launches == 0 for k in kernels)
+    assert all(k._fn is None for k in kernels)  # nothing built
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -113,3 +124,83 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         t_da._cuda.check_cuda("x", torch.bfloat16, q)
     assert t_da._tile(16, 1024, 4) == 64 and t_da._tile(16, 64, 4) == 16
+
+
+@pytest.mark.parametrize("B,D,H,W,C,heads", [(2, 6, 4, 4, 64, 4),   # W < 8: folded in JAX
+                                             (1, 5, 3, 8, 32, 2)])
+def test_depth_attention_forward_and_gradients(rng, B, D, H, W, C, heads):
+    """K3's plain version (the CPU path of `depth_attention`) against the JAX
+    `depth_attention`, forward and the gradients of q, k, v under jax.vjp,
+    and against the Pallas kernel in interpret mode (which folds W < 8 to
+    H*W rows); 2e-5."""
+    f = lambda *s: rng.normal(size=s).astype(np.float32)
+    q, k, v, g = f(B, H, W, C), f(B, D, H, W, C), f(B, D, H, W, C), f(B, H, W, C)
+    ref, vjp = jax.vjp(lambda q, k, v: j_da.depth_attention(q, k, v, heads),
+                       *map(jnp.asarray, (q, k, v)))
+    ref_grads = vjp(jnp.asarray(g))
+    leaves = [cf(a).requires_grad_(True) for a in (q, k, v)]
+    out = t_da.depth_attention(*leaves, heads)
+    out.backward(cf(g))
+    assert_close(cl(out), ref, 2e-5)
+    for got, want in zip(leaves, ref_grads):
+        assert_close(cl(got.grad), want, 2e-5)
+    # the Pallas kernel itself (interpret mode), which folds W < 8 to H*W rows
+    kernel = j_da._pallas_forward(*map(jnp.asarray, (q, k, v)), heads, interpret=True)
+    assert_close(cl(out), kernel, 2e-5)
+
+
+def test_depth_attention_ctx_gradients_of_all_nine_inputs(rng):
+    """K1's autograd gradients (plain chain on the CPU) for q, ctx, mean_x,
+    m2, Wp, gn_scale, gn_bias, Wk, Wv against jax.grad through the JAX
+    depth_attention_ctx (its custom VJP); 1e-4 of each gradient's largest
+    magnitude."""
+    B, D, H, W, Cc, heads, inner = 2, 6, 4, 4, 16, 2, 32
+    a = _ctx_inputs(rng, B, D, H, W, Cc, inner)
+    cot = rng.normal(size=(B, H, W, inner)).astype(np.float32)
+    j = {k: jnp.asarray(v) for k, v in a.items()}
+    mean_x, m2 = j_da.ctx_moments(j["ctx"])
+    names = ("q", "ctx", "mean_x", "m2", "Wp", "scale", "bias", "Wk", "Wv")
+    jargs = (j["q"], j["ctx"], mean_x, m2, j["Wp"], j["scale"], j["bias"], j["Wk"], j["Wv"])
+    ref = jax.grad(lambda *t: jnp.sum(j_da.depth_attention_ctx(*t, heads) * cot),
+                   argnums=tuple(range(9)))(*jargs)
+    tm, tm2 = t_da.ctx_moments(cf(a["ctx"]))
+    # the port's layouts: channels-first maps, nn.Linear (out, in) weights
+    leaves = [cf(a["q"]), cf(a["ctx"]), tm, tm2, tt(a["Wp"]).T.contiguous(), tt(a["scale"]),
+              tt(a["bias"]), tt(a["Wk"]).T.contiguous(), tt(a["Wv"]).T.contiguous()]
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    (t_da.depth_attention_ctx(*leaves, heads) * cf(cot)).sum().backward()
+    back = {0: cl, 1: cl, 4: lambda t: t.T, 7: lambda t: t.T, 8: lambda t: t.T}
+    for i, (name, got, want) in enumerate(zip(names, leaves, ref)):
+        bound = 1e-4 * float(np.abs(np.asarray(want)).max())
+        np.testing.assert_allclose(back.get(i, lambda t: t)(got.grad).detach().numpy(),
+                                   np.asarray(want), rtol=0, atol=bound, err_msg=name)
+
+
+def test_autograd_functions_backward_through_the_plain_versions(rng, monkeypatch):
+    """The CUDA path's autograd Functions, run on the CPU with their kernel
+    launchers replaced by the plain versions: the backward recomputes through
+    the plain chain and returns what autograd of the plain version gives,
+    for all nine inputs of K1 and for q, k, v of K3; the cotangent is cast
+    to the recomputed output's dtype."""
+    monkeypatch.setattr(t_da, "ctx_attention", t_da._ctx_reference)
+    monkeypatch.setattr(t_da, "attention_kernel", t_da._reference)
+    a = _ctx_inputs(rng, 2, 6, 4, 4, 16, 32)
+    mean_x, m2 = t_da.ctx_moments(cf(a["ctx"]))
+    nine = [cf(a["q"]), cf(a["ctx"]), mean_x, m2, tt(a["Wp"]).T, tt(a["scale"]),
+            tt(a["bias"]), tt(a["Wk"]).T, tt(a["Wv"]).T]
+    cot = tt(rng.normal(size=(2, 32, 4, 4)))
+
+    def grads(fn, tensors):
+        leaves = [t.detach().clone().requires_grad_(True) for t in tensors]
+        (fn(*leaves) * cot).sum().backward()
+        return [t.grad for t in leaves]
+
+    via_fn = grads(lambda *t: t_da._DepthAttentionCtx.apply(*t, 2, 8, 1e-5), nine)
+    plain = grads(lambda *t: t_da._ctx_full(*t, 2, 8, 1e-5), nine)
+    for got, want in zip(via_fn, plain):
+        assert_close(got, want, 1e-6)
+    qkv = [tt(rng.normal(size=s)) for s in ((2, 32, 4, 4), (2, 32, 6, 4, 4), (2, 32, 6, 4, 4))]
+    via_fn = grads(lambda *t: t_da._DepthAttention.apply(*t, 4), qkv)
+    plain = grads(lambda *t: t_da._reference(*t, 4), qkv)
+    for got, want in zip(via_fn, plain):
+        assert_close(got, want, 1e-6)

@@ -110,6 +110,25 @@ def test_chip_smoke_main_path_counts():
     assert 50 * sum(s["per_step"] for s in k1) == 500 and 50 * k2["per_step"] == 250
 
 
+def test_chip_smoke_training_counts():
+    """The training path's shapes and launches per step (remat on: every
+    forward twice): K1 at the DepthTransformers of width >= 8, K3 at the
+    W=4 middle block, K2 at the five ds=1 self-attentions, one target view
+    per sample."""
+    shapes = chip_smoke.train_shapes(port_config.Config(), 8)
+    assert [(s["B"], s["W"], s["D"], s["Cc"], s["Ci"], s["per_step"])
+            for s in shapes["k1"]] == [(8, 8, 12, 256, 512, 4), (8, 16, 24, 128, 256, 6),
+                                       (8, 32, 48, 64, 128, 8)]
+    assert [(s["B"], s["W"], s["D"], s["C"], s["per_step"]) for s in shapes["k3"]] == [
+        (8, 4, 6, 1024, 2), (8, 8, 12, 512, 0), (8, 16, 24, 256, 0), (8, 32, 48, 128, 0)]
+    k2 = shapes["k2"]
+    assert (k2["B"], k2["L"], k2["heads"], k2["hd"], k2["per_step"], k2["bwd_per_step"]) == (
+        8, 1024, 8, 40, 10, 5)
+    assert chip_smoke.train_expected_launches(shapes) == {
+        "depth_attention_ctx": 18, "depth_attention": 2, "flash_attention": 10,
+        "flash_attention_bwd_dkv": 5, "flash_attention_bwd_dq": 5}
+
+
 def test_chip_smoke_batch_is_the_bench_batch():
     """The smoke batch is tests/tiny.py's generator at the flagship sizes,
     which is what bench.py feeds the JAX package."""

@@ -95,3 +95,18 @@ def test_single_key_shortcut_equals_general_path(rng):
     c = tt(rng.normal(size=(2, 1, 24)))
     with torch.no_grad():
         assert_close(mod(x, c), mod(x, torch.cat([c, c], dim=1)), 1e-5)
+
+
+@pytest.mark.parametrize("B,L,heads,hd", [(1, 1024, 2, 8), (2, 40, 3, 16)])
+def test_attention_core_gradients(rng, B, L, heads, hd):
+    """The attention core's gradients (the flash path at L = 1024, SDPA
+    elsewhere; plain versions on the CPU) against jax.grad of
+    jax.nn.dot_product_attention; 2e-5."""
+    q, k, v, g = (rng.normal(size=(B, L, heads * hd)).astype(np.float32) for _ in range(4))
+    split = lambda t: jnp.asarray(t).reshape(B, L, heads, hd)
+    ref = jax.grad(lambda q, k, v: jnp.sum(jax.nn.dot_product_attention(
+        split(q), split(k), split(v)).reshape(B, L, -1) * g), argnums=(0, 1, 2))(q, k, v)
+    leaves = [tt(t).requires_grad_(True) for t in (q, k, v)]
+    (T.attention(*leaves, heads) * tt(g)).sum().backward()
+    for got, want in zip(leaves, ref):
+        assert_close(got.grad, want, 2e-5)

@@ -29,7 +29,8 @@ from morphablediffusion_torch.sampling import SyncDDIMSampler as TSampler
 from morphablediffusion_tpu.models.diffusion import MorphableDiffusion as JModel
 from morphablediffusion_tpu.sampling import SyncDDIMSampler as JSampler
 from tests.tiny import tiny_batch, tiny_config
-from tests.torch_parity import assert_close, load_into, port_model_config, seeded_tree, tt
+from tests.torch_parity import (assert_close, load_into, port_model_config, seeded_tree, tt,
+                                well_conditioned)
 
 TOL = 1e-4
 
@@ -46,25 +47,12 @@ def _init_inference(m, batch):
     return m.decode_views(eps)
 
 
-def _well_conditioned(params):
-    def leaf(path, v):
-        names = [str(k.key) for k in path]
-        if names[-1] == "bias":
-            return np.zeros_like(v)
-        if names[-1] == "scale":
-            return np.ones_like(v)
-        if "frustum_volume_feats" in names and ("t_conv" in names or "v_conv" in names):
-            return np.zeros_like(v)
-        return v
-    return jax.tree_util.tree_map_with_path(leaf, params)
-
-
 @pytest.fixture(scope="module")
 def slice_run():
     cfg = tiny_config(view_num=2)
     jmodel = JModel(cfg.model)
     batch = tiny_batch(cfg, with_targets=False)
-    params = _well_conditioned(seeded_tree(jax.eval_shape(
+    params = well_conditioned(seeded_tree(jax.eval_shape(
         lambda b: jmodel.init(jax.random.key(0), b, method=_init_inference), batch)))
     jsampler = JSampler(jmodel, sample_steps=cfg.model.sample_steps)
     rng = jax.random.key(7)

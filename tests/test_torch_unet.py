@@ -89,13 +89,14 @@ def test_depth_transformer_hands_the_kernel_contiguous_tensors(rng, monkeypatch)
     from morphablediffusion_torch.ops import depth_attention as da
 
     seen = []
+    fused = da.depth_attention_ctx
 
     def spy(q, ctx, *rest):
         seen.append((q.is_contiguous(), ctx.is_contiguous()))
-        return da._ctx_reference(q, ctx, *rest)
+        return fused(q, ctx, *rest)
 
     x, ctx, jmod, params, port = _depth_tf(rng, 2, 2)
-    monkeypatch.setattr(da, "ctx_attention", spy)
+    monkeypatch.setattr(da, "depth_attention_ctx", spy)
     xc = cf(x).to(memory_format=torch.channels_last)
     cc = cf(ctx).to(memory_format=torch.channels_last_3d)
     assert not xc.is_contiguous() and not cc.is_contiguous()

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -52,6 +53,25 @@ def seeded_tree(tree, seed: int = 0):
     return jax.tree_util.tree_map_with_path(leaf, tree)
 
 
+def well_conditioned(params):
+    """Biases 0, norm scales 1 (as the JAX init) and the frustum net's
+    time/view projections (t_conv, v_conv) 0. With those projections on,
+    their per-channel offsets dominate the frustum features in the empty part
+    of the frustum and the one-pass fp32 GroupNorm variance of both packages
+    cancels to ~1e-3; they are held to 1e-4 on well-conditioned inputs in
+    test_torch_conditioning.py."""
+    def leaf(path, v):
+        names = [str(k.key) for k in path]
+        if names[-1] == "bias":
+            return np.zeros_like(v)
+        if names[-1] == "scale":
+            return np.ones_like(v)
+        if "frustum_volume_feats" in names and ("t_conv" in names or "v_conv" in names):
+            return np.zeros_like(v)
+        return v
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
 def load_into(module: torch.nn.Module, params) -> torch.nn.Module:
     """Load a flax {'params': ...} tree into a port module (strict)."""
     module.load_state_dict(from_jax_params(flatten_tree(params["params"]), device="cpu"), strict=True)
@@ -79,3 +99,140 @@ def cf(x) -> torch.Tensor:
 
 def assert_close(actual, expected, tol: float):
     np.testing.assert_allclose(to_np(actual), to_np(expected), rtol=tol, atol=tol)
+
+
+# training (tests/test_torch_train*.py) ------------------------------------
+
+STEP_NAMES = ["time", "noise", "view", "vae", "drop"]
+
+
+def jax_training_draws(m, batch):
+    """Method for the JAX MorphableDiffusion: the random draws of its
+    training_loss, in its make_rng order (vae, vae, time, noise, view,
+    drop), in the port's TrainingDraws layout."""
+    N, h = m.cfg.view_num, m.cfg.latent_size
+    n = batch["target_image"].shape[0]
+    vae_target = jax.random.normal(m.make_rng("vae"), (n * N, h, h, 4), jnp.float32)
+    vae_input = jax.random.normal(m.make_rng("vae"), (n, h, h, 4), jnp.float32)
+    return {
+        "vae_target": vae_target, "vae_input": vae_input,
+        "t": jax.random.randint(m.make_rng("time"), (n,), 0, 1000),
+        "noise": jax.random.normal(m.make_rng("noise"), (n, N, h, h, 4), jnp.float32),
+        "target_index": jax.random.randint(m.make_rng("view"), (n, 1), 0, N),
+        "r": jax.random.uniform(m.make_rng("drop"), (n,)),
+    }
+
+
+def step_rngs(rng, step: int):
+    """The JAX Trainer's rngs of micro-step `step` (trainer.py:234-236)."""
+    return dict(zip(STEP_NAMES, jax.random.split(jax.random.fold_in(rng, step), 5)))
+
+
+def port_train_config(jcfg) -> port_config.Config:
+    """The JAX package's Config -> the port's (model and train sections)."""
+    return port_config.Config(model=port_model_config(jcfg.model),
+                              train=port_config.TrainConfig(**dataclasses.asdict(jcfg.train)))
+
+
+def torch_draws(jmodel, params, batch, rngs):
+    d = jmodel.apply(params, batch, method=jax_training_draws, rngs=rngs)
+    return {k: torch.from_numpy(np.asarray(v)) for k, v in d.items()}
+
+
+def train_config():
+    """tests/tiny.py's config, twice as wide in the UNet and the frustum net,
+    so that every GroupNorm group holds at least two channels. With one
+    channel per group (tiny.py's 32 UNet channels under GroupNorm(32), its
+    8 frustum channels under GroupNorm(8)) the norm removes any per-channel
+    constant, and the gradients of the biases and time shifts ahead of it
+    are zero up to rounding, which no relative bound can hold."""
+    from tests.tiny import tiny_config
+
+    jcfg = tiny_config(view_num=2)
+    jcfg.model.unet.model_channels = 64
+    jcfg.model.unet.volume_dims = (16, 32, 64, 128)
+    return jcfg
+
+
+def train_setup(B: int = 2):
+    """train_config's model and a B-sample batch; well-conditioned seeded
+    parameters with VAE and CLIP stored in bf16 (the JAX Trainer's
+    cast_frozen); and a root key whose step-0 drop uniforms drop a condition
+    of sample 0 and none of sample 1, and whose step 0 keeps the UNet's ReLU
+    inputs clear of 0 (`relu_margin`)."""
+    from morphablediffusion_tpu.models.diffusion import MorphableDiffusion
+    from morphablediffusion_tpu.parallel.mesh import create_mesh
+    from morphablediffusion_tpu.training.trainer import Trainer
+    from tests.tiny import tiny_batch
+
+    jcfg = train_config()
+    jmodel = MorphableDiffusion(jcfg.model)
+    batch = tiny_batch(jcfg, B=B)
+    init_rngs = dict(zip(["params"] + STEP_NAMES, jax.random.split(jax.random.key(0), 6)))
+    params = well_conditioned(seeded_tree(jax.eval_shape(
+        lambda b: jmodel.init(init_rngs, b, method="init_fn"), batch)))
+    params = Trainer(jcfg, mesh=create_mesh(jax.devices()[:1])).cast_frozen(
+        jax.tree.map(jnp.asarray, params))
+    s = dict(jcfg=jcfg, jmodel=jmodel, batch=batch, params=params,
+             tb={k: tt(v) for k, v in batch.items()})
+    port, _ = port_train_model(s)
+    for k in range(200):
+        rng = jax.random.key(k)
+        draws = torch_draws(jmodel, params, batch, step_rngs(rng, 0))
+        r = draws["r"].numpy()
+        if r[0] <= 0.2 < r[1] and relu_margin(port, s["tb"], draws) > 3e-6:
+            return dict(s, rng=rng)
+    raise AssertionError("no step key meets the conditions")
+
+
+def relu_margin(model, batch, draws) -> float:
+    """The smallest non-zero |input| of the UNet's GroupNorm ReLUs (the
+    DepthTransformers' context and output norms, and the fused chain's) in
+    the port's training loss. A ReLU's derivative jumps at 0: an input
+    within rounding (~1e-6 here) of 0 may take the other branch in the JAX
+    package, which moves the gradient of every weight that sums over that
+    location by ~1e-2 of its size. train_setup picks a step key whose inputs
+    keep clear of it."""
+    import torch.nn.functional as F
+
+    from morphablediffusion_torch.ops import depth_attention as da
+    from morphablediffusion_torch.ops import group_norm
+
+    seen = []
+
+    def note(y):
+        mag = y.detach().abs()
+        mag = mag[mag > 0]
+        if mag.numel():
+            seen.append(float(mag.min()))
+
+    def gn_relu(x):
+        note(x)
+        return F.relu(x)
+
+    def ctx_full(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv, heads, groups, eps):
+        A, B2 = da._ctx_affine(mean_x, m2, Wp, gn_scale, gn_bias, groups, eps)
+        p = torch.einsum("oc,bcdhw->bodhw", Wp.to(ctx.dtype), ctx)
+        note(p.float() * A[:, :, None, None, None] + B2[:, :, None, None, None])
+        return full(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv, heads, groups, eps)
+
+    full, saved = da._ctx_full, group_norm._ACTS["relu"]
+    da._ctx_full, group_norm._ACTS["relu"] = ctx_full, gn_relu
+    try:
+        with torch.no_grad():
+            model.training_loss(batch, draws=draws)
+    finally:
+        da._ctx_full, group_norm._ACTS["relu"] = full, saved
+    return min(seen)
+
+
+def port_train_model(s, jcfg=None):
+    """The port's model on train_setup's parameters (VAE and CLIP in bf16,
+    as the port's Trainer stores them) and the port's Config."""
+    from morphablediffusion_torch.models.diffusion import MorphableDiffusion
+    from morphablediffusion_torch.training.trainer import cast_frozen
+
+    pcfg = port_train_config(jcfg or s["jcfg"])
+    model = load_into(MorphableDiffusion(pcfg.model, device="cpu"), s["params"])
+    cast_frozen(model)
+    return model, pcfg
