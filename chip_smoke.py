@@ -18,19 +18,21 @@ Phases (any failure exits non-zero):
      plain version and, as the yardstick `library_ms` (the port never calls
      it), F.scaled_dot_product_attention for flash attention and depth
      attention, and its backward for the flash backward kernels (K2-dkv and
-     K2-dq against the plain version's autograd gradients);
+     K2-dq against the plain version's autograd gradients). K4 (GroupNorm)
+     is held the same way at every GroupNorm call that the censuses of
+     phases 3, 6 and 7 find, after phase 7 (its yardstick: F.group_norm and
+     the activation);
   3. one full-width `predict_eps_cfg` step with the kernels and with the
      plain versions, in bf16; print and bound the relative L2 between the
      two, and hold the kernels' step no further from the fp32 model (same
      seeded weights, plain versions) than 1.25 x the plain bf16 step; count
-     that step's GroupNorm calls by shape and, at the most frequent one, give
-     the still unported GroupNorm kernel (K4) its bound, the plain version's
-     time and F.group_norm's;
+     the avatar's GroupNorm calls by shape (VAE encode, one step, decode);
   4. the full avatar: `Config()` defaults (16 views at 256^2, bf16, CFG 2.0,
      50 DDIM steps, coarse mesh voxels), seeded weights cast for serving; one
      warm-up run, then one timed run with every launch counter set to 0
-     just before it: the depth-context kernel must launch 500 times and the
-     flash kernel 250 times, and the images must be finite and not constant;
+     just before it: the depth-context kernel must launch 500 times, the
+     flash kernel 250 times and each of K4's two kernels once per GroupNorm
+     call of the census, and the images must be finite and not constant;
   5. profile one denoising step with torch.profiler: the device's busy and
      idle share and its kernel time by group and by name;
   6. training: `Config()` defaults at full width and depth (remat on),
@@ -38,12 +40,18 @@ Phases (any failure exits non-zero):
      the input view. One loss and backward with the kernels and with the
      plain versions on the same draws (loss, global grad norm and named
      gradient leaves printed and bounded by twice the gap between two runs
-     of the plain versions plus a floor); then 2 warm-up and 5 timed
+     of the plain versions plus a floor); then 2 warm-up steps (the first
+     counts the step's GroupNorm calls, remat's reruns included) and 5 timed
      `Trainer.train_step`s with every launch counter set to 0 just before
      them: ms per step (CUDA events), samples/s, peak memory, and launches
-     per step of K1, K2, K2-dkv, K2-dq and K3, asserted; the loss finite and
-     the parameters changed; then one profiled training step;
-  7. print the kernels line, the card line, and as the last line
+     per step of K1, K2, K2-dkv, K2-dq, K3 and K4, asserted; the loss finite
+     and the parameters changed; then one profiled training step;
+  7. the other configurations at full width, each with a step as in phase 3
+     and a GroupNorm census: THuman (orthographic, coarse grid (80, 48, 80),
+     10 496 vertices; also a warm-up and a timed avatar with launch counts),
+     the fine mesh-voxel conditioner (grid (128, 144, 128) at 0.005 m; also
+     a timed avatar) and `use_spatial_volume`;
+  8. print the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Fp32 references on the card run with TF32 off: both
@@ -55,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -447,11 +456,11 @@ def check_train_kernels(shapes, device, iters: int = 10):
     return results
 
 
-def group_norm_census(model, batch):
-    """Every GroupNorm call that a full-width serving step repeats (the UNet's
-    and the conditioning nets'; not the VAE encode of `one_step`'s
-    preparation, which runs once per avatar), counted by (x shape, dtype,
-    groups, activation, shifted)."""
+def gn_census(model, fn):
+    """Every GroupNorm call that fn() makes in `model`, counted by (x shape,
+    dtype, groups, activation, shifted, eps). Forward pre-hooks: a forward
+    that remat reruns in the backward pass counts again, as it launches
+    again."""
     from morphablediffusion_torch.models.layers import GroupNorm
 
     counts = {}
@@ -459,19 +468,43 @@ def group_norm_census(model, batch):
     def hook(mod, args, kwargs):
         x = args[0]
         shifted = (args[1] if len(args) > 1 else kwargs.get("shift")) is not None
-        key = (tuple(x.shape), x.dtype, mod.num_groups, mod.act, shifted)
+        key = (tuple(x.shape), x.dtype, mod.num_groups, mod.act, shifted, mod.epsilon)
         counts[key] = counts.get(key, 0) + 1
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
-               for part in (model.unet, model.spatial_volume)
-               for m in part.modules() if isinstance(m, GroupNorm)]
+               for m in model.modules() if isinstance(m, GroupNorm)]
     try:
-        with torch.inference_mode():
-            one_step(model, batch)
+        fn()
     finally:
         for h in handles:
             h.remove()
     return counts
+
+
+def avatar_census(model, batch):
+    """The GroupNorm calls of one avatar: the VAE encode of
+    `prepare_inference`, one denoising step (`predict_eps_cfg`; an avatar
+    runs sample_steps of them) and the decode of all views. Returns
+    ({key: calls per avatar}, {key: calls per step})."""
+    m = model.cfg
+    with torch.inference_mode():
+        enc = gn_census(model, lambda: model.prepare_inference(batch))
+        prep = model.prepare_inference(batch)
+        step = gn_census(model, lambda: one_step(model, batch, prep=prep))
+        lat = torch.zeros((1, m.view_num, m.latent_size, m.latent_size, 4), device=model.device)
+        dec = gn_census(model, lambda: model.decode_views(lat))
+    avatar = {}
+    for counts, times in ((enc, 1), (step, m.sample_steps), (dec, 1)):
+        for k, n in counts.items():
+            avatar[k] = avatar.get(k, 0) + times * n
+    return avatar, step
+
+
+def gn_launches(counts):
+    """Launches of each of K4's two kernels for the calls of a census."""
+    from morphablediffusion_torch.ops import group_norm as gn
+
+    return {k.name: sum(counts.values()) for k in gn.KERNELS}
 
 
 # fp32 operations per element of the GroupNorm kernel: statistics (add,
@@ -479,46 +512,73 @@ def group_norm_census(model, batch):
 GN_OPS = {None: 5, "relu": 6, "silu": 9}
 
 
-def check_group_norm(counts, device, iters: int = 10):
-    """K4 is not ported yet (ROADMAP B4): the numbers its row needs, at the
-    most frequent GroupNorm call of a serving step. Its bound (bytes: x read
-    and y written once, gamma and beta, the shift; operations at the fp32
-    peak outside the tensor cores), the port's plain version's time, and as
-    the yardstick F.group_norm followed by the activation (one library call
-    for the norm; the shift added beforehand, outside the timing)."""
-    from morphablediffusion_torch.ops.group_norm import _ACTS, group_norm_shifted
+def gn_cost(shape, dtype, shifted, act):
+    """(fp32 operations, bytes) of one GroupNorm call: x read and y written
+    once, gamma and beta, the shift (fp32)."""
+    B, C = shape[:2]
+    n = math.prod(shape)
+    size = torch.finfo(dtype).bits // 8
+    return GN_OPS[act] * n, 2 * n * size + 8 * C + (4 * B * C if shifted else 0)
+
+
+def check_group_norm(censuses, device, iters: int = 10):
+    """K4 against its plain version `_reference` at every GroupNorm call of
+    the censuses ([(path, {key: calls})]), relative L2 1e-2, on random
+    inputs (gamma 1 + N(0, 0.1^2), beta and shift random). Times (per call,
+    both launches) K4, the plain version and, as the yardstick, F.group_norm
+    followed by the activation (one library call for the norm; the shift
+    added beforehand, outside the timing). The bound: bytes (x read and y
+    written once) or fp32 operations at the peak outside the tensor cores.
+    Returns one row per (path, key), per_step its calls there."""
+    from morphablediffusion_torch.ops import group_norm as gn
     import torch.nn.functional as F
 
-    (shape, dtype, groups, act, shifted), per_step = max(counts.items(), key=lambda kv: kv[1])
+    keys = sorted({k for _, counts in censuses for k in counts},
+                  key=lambda k: (-math.prod(k[0]), str(k)))
     g = torch.Generator(device).manual_seed(4)
-    B, C = shape[:2]
-    x = torch.randn(shape, generator=g, device=device).to(dtype)
-    gamma = 1 + 0.1 * torch.randn(C, generator=g, device=device)
-    beta = 0.1 * torch.randn(C, generator=g, device=device)
-    shift = torch.randn(B, C, generator=g, device=device) if shifted else None
-    view = (B, C) + (1,) * (len(shape) - 2)
-    x_lib = x if shift is None else (x.float() + shift.reshape(view)).to(dtype)
-    gl, bl = gamma.to(dtype), beta.to(dtype)
-    plain = group_norm_shifted(x, shift, gamma, beta, groups, 1e-5, act)
-    lib = _ACTS[act](F.group_norm(x_lib, groups, gl, bl, 1e-5))
-    torch.cuda.synchronize()
-    err = rel_l2(lib, plain)
-    plain_ms = cuda_ms(lambda: group_norm_shifted(x, shift, gamma, beta, groups, 1e-5, act),
-                       iters)
-    lib_ms = cuda_ms(lambda: F.group_norm(x_lib, groups, gl, bl, 1e-5), iters)
-    n = x.numel()
-    nbytes = 2 * n * x.element_size() + 8 * C + (4 * B * C if shifted else 0)
-    flops = GN_OPS[act] * n
-    b_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    b_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    total = sum(counts.values())
-    log(f"K4 group_norm (not ported) at its most frequent call, x {shape} {dtype} groups="
-        f"{groups} act={act} shifted={shifted}, x{per_step}/step of {total} GroupNorm "
-        f"calls per step ({len(counts)} shapes): bound_ms={b_ms:.5f} ({b_by}; "
-        f"{flops / 1e9:.3f} GFLOP fp32, {nbytes / 1e6:.2f} MB) plain_ms={plain_ms:.4f} "
-        f"F.group_norm_ms={lib_ms:.4f} (with the activation: rel_l2 vs plain {err:.2e})")
-    if not err <= REL_L2_KERNEL:
-        raise AssertionError(f"F.group_norm vs the plain GroupNorm: rel L2 {err:.3e}")
+    measured = {}
+    for key in keys:
+        shape, dtype, groups, act, shifted, eps = key
+        B, C = shape[:2]
+        x = torch.randn(shape, generator=g, device=device).to(dtype)
+        gamma = 1 + 0.1 * torch.randn(C, generator=g, device=device)
+        beta = 0.1 * torch.randn(C, generator=g, device=device)
+        shift = torch.randn(B, C, generator=g, device=device).to(dtype) if shifted else None
+        args = (x, shift, gamma, beta, groups, eps, act)
+        out, plain = gn.group_norm_kernel(*args), gn._reference(*args)
+        x_lib = x if shift is None else (
+            x.float() + shift.float().reshape((B, C) + (1,) * (len(shape) - 2))).to(dtype)
+        gl, bl = gamma.to(dtype), beta.to(dtype)
+        lib = lambda: gn._ACTS[act](F.group_norm(x_lib, groups, gl, bl, eps))
+        lib_err = rel_l2(lib(), plain)
+        torch.cuda.synchronize()
+        err, mae = rel_l2(out, plain), float((out.float() - plain.float()).abs().max())
+        ms = cuda_ms(lambda: gn.group_norm_kernel(*args), iters)
+        plain_ms = cuda_ms(lambda: gn._reference(*args), max(2, iters // 4))
+        lib_ms = cuda_ms(lib, iters)
+        flops, nbytes = gn_cost(shape, dtype, shifted, act)
+        b_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        b_by = "operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        calls = ", ".join(f"{p} x{c[key]}" for p, c in censuses if key in c)
+        log(f"K4 group_norm x {shape} {str(dtype)[6:]} G={groups} act={act} shift={shifted} "
+            f"eps={eps:g}: rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} plain_ms="
+            f"{plain_ms:.4f} F.group_norm+act_ms={lib_ms:.4f} (rel_l2 {lib_err:.1e}) "
+            f"bound_ms={b_ms:.5f} ({b_by}; {nbytes / 1e6:.2f} MB); calls: {calls}")
+        if not (err <= REL_L2_KERNEL and lib_err <= REL_L2_KERNEL):
+            raise AssertionError(f"K4 at {key}: rel L2 {err:.3e} (F.group_norm "
+                                 f"{lib_err:.3e}) > {REL_L2_KERNEL}")
+        measured[key] = dict(shape=f"{shape} G={groups} {act} shift={shifted}", ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, library_ms=lib_ms,
+                             flops=flops, bytes=nbytes, rel_l2=err, max_abs_err=mae)
+        del x, x_lib, out, plain, shift
+    rows = [dict(measured[k], path=path, per_step=n)
+            for path, counts in censuses for k, n in counts.items()]
+    for path, counts in censuses:
+        tot = lambda f: sum(n * measured[k][f] for k, n in counts.items())
+        log(f"K4 on {path}: {sum(counts.values())} calls over {len(counts)} shapes; summed "
+            f"over them ms={tot('ms'):.3f} plain_ms={tot('plain_ms'):.3f} "
+            f"F.group_norm+act_ms={tot('library_ms'):.3f} bound_ms={tot('bound_ms'):.4f}")
+    return rows
 
 
 @contextlib.contextmanager
@@ -528,24 +588,26 @@ def plain_versions():
     differentiates the plain versions."""
     from morphablediffusion_torch.ops import depth_attention as da
     from morphablediffusion_torch.ops import flash_attention as fa
+    from morphablediffusion_torch.ops import group_norm as gn
 
-    saved = da.ctx_attention, da.depth_attention, fa.flash_attention
-    da.ctx_attention, da.depth_attention, fa.flash_attention = (
-        da._ctx_reference, da._reference, fa.attention_reference)
+    saved = da.ctx_attention, da.depth_attention, fa.flash_attention, gn.group_norm_shifted
+    da.ctx_attention, da.depth_attention, fa.flash_attention, gn.group_norm_shifted = (
+        da._ctx_reference, da._reference, fa.attention_reference, gn._reference)
     try:
         yield
     finally:
-        da.ctx_attention, da.depth_attention, fa.flash_attention = saved
+        da.ctx_attention, da.depth_attention, fa.flash_attention, gn.group_norm_shifted = saved
 
 
-def one_step(model, batch, index: int = 25):
+def one_step(model, batch, index: int = 25, prep=None):
     """Phase 3: one full-width CFG noise prediction at DDIM index `index`,
-    from the same seeded noisy latents whatever the model's dtype."""
+    from the same seeded noisy latents whatever the model's dtype; `prep`
+    is model.prepare_inference(batch), made here if not given."""
     from morphablediffusion_torch.ops import schedules
 
     m = model.cfg
     dev = model.device
-    prep = model.prepare_inference(batch)
+    prep = model.prepare_inference(batch) if prep is None else prep
     g = torch.Generator(dev).manual_seed(3)
     x = torch.randn((1, m.view_num, m.latent_size, m.latent_size, 4), generator=g, device=dev)
     sched = schedules.make_diffusion_schedule(device=dev)
@@ -584,7 +646,9 @@ def kernel_group(name: str) -> str:
                        ("flash_fwd_kernel", "K2 flash_attention"),
                        ("flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
                        ("flash_bwd_dq_kernel", "K2-dq flash_attention_bwd"),
-                       ("depth_attn_kernel", "K3 depth_attention")):
+                       ("depth_attn_kernel", "K3 depth_attention"),
+                       ("gn_stats_kernel", "K4 group_norm"),
+                       ("gn_apply_kernel", "K4 group_norm")):
         if key in name:
             return group
     if any(w in low for w in ("conv", "fprop", "dgrad", "wgrad", "implicit")):
@@ -642,8 +706,9 @@ def profile_report(label: str, step, top: int = 15):
 
 
 # gradient leaves compared between the kernels and the plain versions: K1's
-# q/k/v and projection weights, K3's, K2's (forward and backward), and the
-# frustum net that feeds K1's context
+# q/k/v and projection weights, K3's, K2's (forward and backward), the
+# frustum net that feeds K1's context, and K4's gamma and beta and the time
+# projection that reaches the loss through its shift
 NAMED_LEAVES = (
     "unet.out_11_cond.proj_context_conv.weight",
     "unet.out_11_cond.depth_attn.to_q.weight",
@@ -652,6 +717,9 @@ NAMED_LEAVES = (
     "unet.in_1_attn.block_0.attn1.to_k.weight",
     "unet.in_1_attn.block_0.attn1.to_v.weight",
     "spatial_volume.frustum_volume_feats.conv0.weight",
+    "unet.in_1_res.norm_out.weight",
+    "unet.out_5_res.norm_in.bias",
+    "unet.in_1_res.emb_proj.weight",
 )
 
 
@@ -665,8 +733,11 @@ def train_expected_launches(shapes):
 
 
 def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup: int = 2):
-    """Phase 6: full-width training steps on the port's Trainer. Returns the
-    launch counts of the timed run, its ms per step and the peak memory."""
+    """Phase 6: full-width training steps on the port's Trainer. `expected`
+    holds the launches per step of every kernel but K4's, whose come from
+    the GroupNorm census of the first warm-up step. Returns the launch
+    counts of the timed run, its ms per step, the peak memory and the
+    census."""
     from morphablediffusion_torch.training.trainer import Trainer
 
     B = TRAIN_BATCH
@@ -719,7 +790,9 @@ def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup
     del leaves_k, leaves_p, leaves_r
 
     before = {n: params[n].detach().float().clone() for n in NAMED_LEAVES}
-    for _ in range(warmup):
+    census = gn_census(model, lambda: trainer.train_step(batch))
+    expected = dict(expected, **gn_launches(census))
+    for _ in range(warmup - 1):
         trainer.train_step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -746,33 +819,145 @@ def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup
     if launches != {n: steps * c for n, c in expected.items()}:
         raise AssertionError(f"training launch counts {launches}, expected {steps} x {expected}")
     profile_report("phase 6 one profiled training step", lambda: trainer.train_step(batch))
-    return launches, ms, peak
+    return launches, ms, peak, census
 
 
-def kernel_entry(name, source, replaces, rows, launches, path, run, train_per_step):
+def kernel_entry(name, source, replaces, rows, launches, path, run, train_per_step,
+                 per_call: int = 1, peak_flops: float = PEAK_BF16_FLOPS,
+                 list_shapes: bool = True):
     """One kernel of the kernels line. ms, plain_ms, bound_ms and
     library_ms are per launch, averaged over the launch mix of the rows of
     `path` (serving or training), the path of `run`, the run that counted
     `launches` (the avatar or the timed training steps): launches * ms is
-    the kernel's time there. train_per_step is its launches per training
-    step, counted in the timed training steps. Every row, of either path,
-    is listed under shapes."""
+    the kernel's time there. A call of K4 is per_call = 2 launches (the
+    rows time whole calls; per launch is half of that). train_per_step is
+    its launches per training step, counted in the timed training steps.
+    Every row is listed under shapes (per call, per_step its calls), or
+    with list_shapes=False (K4's hundreds of rows, which its log lines
+    give) only counted."""
     mix = [r for r in rows if r["path"] == path]
     n = sum(r["per_step"] for r in mix)
-    mean = lambda key: sum(r["per_step"] * r[key] for r in mix) / n
+    mean = lambda key: sum(r["per_step"] * r[key] for r in mix) / n / per_call
     flops, nbytes = mean("flops"), mean("bytes")
     lib = mix[0].get("library_ms")
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": mean("ms"), "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+        "bound_by": "operations" if flops / peak_flops >= nbytes / PEAK_BYTES else "bytes",
         "library_ms": None if lib is None else mean("library_ms"),
-        "run": run, "train_launches_per_step": train_per_step,
-        "shapes": [{k: r[k] for k in ("shape", "path", "per_step", "ms", "plain_ms",
-                                      "bound_ms", "rel_l2")} for r in rows],
+        "run": run, "train_launches_per_step": train_per_step, "launches_per_call": per_call,
+        "max_rel_l2": max(r["rel_l2"] for r in rows), "shape_rows": len(rows),
     }
+    if list_shapes:
+        entry["shapes"] = [{k: r[k] for k in ("shape", "path", "per_step", "ms", "plain_ms",
+                                              "bound_ms", "rel_l2")} for r in rows]
+    return entry
+
+
+def step_check(cfg, device, label: str):
+    """Phase 3 (and 7): one full-width step of `cfg` in bf16 with the
+    kernels and with the plain versions, and of the fp32 model (same seeded
+    weights, plain versions); the kernels' step must be finite, within
+    REL_L2_STEP of the plain one and no further from the fp32 model than
+    STEP_VS_FP32_RATIO x the plain bf16 step. Returns the serving model, the
+    batch and the kernels' step time in ms (CUDA events, the mean of 3
+    steps after a warm one, prepare_inference excluded)."""
+    from morphablediffusion_torch.models.diffusion import MorphableDiffusion
+    from morphablediffusion_torch.weights import seeded_params
+
+    t0 = time.perf_counter()
+    model = serving_model(cfg, device, seed=0)
+    batch = flagship_batch(cfg, device, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.dtype = "float32"
+    model32 = seeded_params(MorphableDiffusion(cfg32.model, device=device), 0).eval()
+    with torch.inference_mode():
+        prep = model.prepare_inference(batch)
+        eps = one_step(model, batch, prep=prep)
+        step_ms = cuda_ms(lambda: one_step(model, batch, prep=prep), 3, warmup=0)
+        with plain_versions():
+            eps_plain = one_step(model, batch, prep=prep)
+            eps32 = one_step(model32, batch)
+    del model32
+    torch.cuda.empty_cache()
+    step_err = rel_l2(eps, eps_plain)
+    err_k, err_p = rel_l2(eps, eps32), rel_l2(eps_plain, eps32)
+    log(f"{label} one predict_eps_cfg step ({n_params / 1e6:.1f} M params): eps "
+        f"{tuple(eps.shape)} rel_l2 kernels vs plain = {step_err:.3e}; vs the fp32 "
+        f"model: kernels {err_k:.3e}, plain bf16 {err_p:.3e}; kernels' step {step_ms:.2f} ms "
+        f"(CUDA events, mean of 3) ({time.perf_counter() - t0:.1f} s)")
+    if (not torch.isfinite(eps).all() or not step_err <= REL_L2_STEP
+            or not err_k <= STEP_VS_FP32_RATIO * err_p):
+        raise AssertionError(f"{label} step: finite={bool(torch.isfinite(eps).all())} "
+                             f"rel L2 {step_err:.3e} (bound {REL_L2_STEP}); vs fp32 "
+                             f"{err_k:.3e} (bound {STEP_VS_FP32_RATIO} x {err_p:.3e})")
+    return model, batch, step_ms
+
+
+def timed_avatar(sampler, batch, kernels, want, label: str, warmup: bool = True):
+    """Phase 4 (and 7): an optional warm-up avatar, then one timed avatar
+    with every launch counter set to 0 just before it. The launches must be
+    `want` and the images finite, not constant and of the config's shape.
+    Returns (seconds by CUDA events, peak bytes, launches)."""
+    cfg = sampler.model.cfg
+    gen = torch.Generator(sampler.model.device).manual_seed(1)
+    if warmup:
+        t0 = time.perf_counter()
+        sampler.sample(batch, cfg.cfg_scale, generator=gen)
+        torch.cuda.synchronize()
+        log(f"{label} warm-up avatar: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    images, latents = sampler.sample(batch, cfg.cfg_scale, generator=gen)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    seconds = ev0.elapsed_time(ev1) / 1e3
+    log(f"{label} avatar: {seconds:.3f} s (CUDA events), {host_s:.3f} s host clock; peak "
+        f"allocated {peak / 2**30:.2f} GiB; launches {launches} (expected {want})")
+    shape = (1, cfg.view_num, cfg.image_size, cfg.image_size, 3)
+    finite = bool(torch.isfinite(images).all())
+    spread = float(images.float().std())
+    log(f"  images {tuple(images.shape)} finite={finite} std={spread:.4f} "
+        f"mean={float(images.float().mean()):.4f}; latents {tuple(latents.shape)}")
+    if tuple(images.shape) != shape or not finite or not spread > 0:
+        raise AssertionError(f"{label}: the avatar's images are not finite, non-constant "
+                             f"and of shape {shape}")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches}, expected {want}")
+    return seconds, peak, launches
+
+
+def avatar_launches(kernels, cfg, k1_shapes, k2_shape, gn_counts):
+    """Launches of every kernel in one serving avatar: K1 and K2 per step
+    (main_path_shapes) times the steps, K4 per GroupNorm call of the census,
+    none of the training kernels."""
+    want = {k.name: 0 for k in kernels}
+    steps = cfg.model.sample_steps
+    want.update(depth_attention_ctx=steps * sum(s["per_step"] for s in k1_shapes),
+                flash_attention=steps * k2_shape["per_step"], **gn_launches(gn_counts))
+    return want
+
+
+def other_configs():
+    """Phase 7's configurations at full width: label -> Config."""
+    from morphablediffusion_torch.utils.config import _THUMAN_DEFAULTS, Config
+
+    thuman, fine, spatial = Config(), Config(), Config()
+    thuman.data.dataset = "thuman"
+    thuman.model = dataclasses.replace(thuman.model, **_THUMAN_DEFAULTS)
+    fine.model.mesh_voxel_mode = "fine"  # grid (128, 144, 128) at 0.005 m
+    spatial.model.use_spatial_volume = True
+    return {"thuman": thuman, "fine": fine, "spatial_volume": spatial}
 
 
 def main() -> int:
@@ -783,13 +968,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    from morphablediffusion_torch.models.diffusion import MorphableDiffusion
     from morphablediffusion_torch.ops import _cuda
     from morphablediffusion_torch.ops import depth_attention as da
     from morphablediffusion_torch.ops import flash_attention as fa
+    from morphablediffusion_torch.ops import group_norm as gn
     from morphablediffusion_torch.sampling import SyncDDIMSampler
     from morphablediffusion_torch.utils.config import Config
-    from morphablediffusion_torch.weights import seeded_params
 
     device = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -799,7 +983,8 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    kernels = (da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL, fa.BWD_DQ_KERNEL, da.DEPTH_KERNEL)
+    kernels = (da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL, fa.BWD_DQ_KERNEL, da.DEPTH_KERNEL,
+               *gn.KERNELS)
     _cuda.build(kernels)
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
@@ -811,7 +996,7 @@ def main() -> int:
     tshapes = train_shapes(cfg, TRAIN_BATCH)
 
     # 2. kernels against their plain versions, at the serving shapes and at
-    # the training shapes
+    # the training shapes (K4 after phase 7, at the shapes of the censuses)
     t0 = time.perf_counter()
     with torch.inference_mode():
         checked = check_kernels(k1_shapes, k2_shape, device)
@@ -820,84 +1005,54 @@ def main() -> int:
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.1f} s")
 
     # 3. one full-width step: bf16 with the kernels, bf16 with the plain
-    # versions, and the fp32 model (same seeded weights, plain versions)
-    t0 = time.perf_counter()
-    model = serving_model(cfg, device, seed=0)
-    batch = flagship_batch(cfg, device, seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
-    cfg32 = copy.deepcopy(cfg)
-    cfg32.model.dtype = "float32"
-    model32 = seeded_params(MorphableDiffusion(cfg32.model, device=device), 0).eval()
-    with torch.inference_mode():
-        eps = one_step(model, batch)
-        with plain_versions():
-            eps_plain = one_step(model, batch)
-            eps32 = one_step(model32, batch)
-    del model32
-    step_err = rel_l2(eps, eps_plain)
-    err_k, err_p = rel_l2(eps, eps32), rel_l2(eps_plain, eps32)
-    log(f"phase 3 one predict_eps_cfg step ({n_params / 1e6:.1f} M params): eps "
-        f"{tuple(eps.shape)} rel_l2 kernels vs plain = {step_err:.3e}; vs the fp32 "
-        f"model: kernels {err_k:.3e}, plain bf16 {err_p:.3e} "
-        f"({time.perf_counter() - t0:.1f} s)")
-    if (not torch.isfinite(eps).all() or not step_err <= REL_L2_STEP
-            or not err_k <= STEP_VS_FP32_RATIO * err_p):
-        raise AssertionError(f"step: finite={bool(torch.isfinite(eps).all())} "
-                             f"rel L2 {step_err:.3e} (bound {REL_L2_STEP}); vs fp32 "
-                             f"{err_k:.3e} (bound {STEP_VS_FP32_RATIO} x {err_p:.3e})")
-    del eps, eps_plain, eps32
-    check_group_norm(group_norm_census(model, batch), device)
+    # versions, and the fp32 model; the avatar's GroupNorm calls
+    model, batch, _ = step_check(cfg, device, "phase 3")
+    gn_avatar, gn_step = avatar_census(model, batch)
+    censuses = [("serving", gn_avatar)]
+    log(f"phase 3 GroupNorm census: {sum(gn_step.values())} calls per denoising step over "
+        f"{len(gn_step)} shapes, {sum(gn_avatar.values())} per avatar over {len(gn_avatar)}")
 
     # 4. the full avatar
     sampler = SyncDDIMSampler(model, sample_steps=cfg.model.sample_steps)
-    gen = torch.Generator(device).manual_seed(1)
-    t0 = time.perf_counter()
-    sampler.sample(batch, cfg.model.cfg_scale, generator=gen)
-    torch.cuda.synchronize()
-    log(f"phase 4 warm-up avatar: {time.perf_counter() - t0:.2f} s")
-
-    torch.cuda.reset_peak_memory_stats()
-    for k in kernels:
-        k.launches = 0
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    ev0.record()
-    images, latents = sampler.sample(batch, cfg.model.cfg_scale, generator=gen)
-    ev1.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    peak = torch.cuda.max_memory_allocated()
-    steps = cfg.model.sample_steps
-    want = {k.name: 0 for k in kernels}  # serving launches no training kernel
-    want.update(depth_attention_ctx=steps * sum(s["per_step"] for s in k1_shapes),
-                flash_attention=steps * k2_shape["per_step"])
-    log(f"phase 4 avatar: {ev0.elapsed_time(ev1) / 1e3:.3f} s (CUDA events), "
-        f"{host_s:.3f} s host clock; peak allocated {peak / 2**30:.2f} GiB; "
-        f"launches {launches} (expected {want})")
-    m = cfg.model
-    shape = (1, m.view_num, m.image_size, m.image_size, 3)
-    finite = bool(torch.isfinite(images).all())
-    spread = float(images.float().std())
-    log(f"  images {tuple(images.shape)} finite={finite} std={spread:.4f} "
-        f"mean={float(images.float().mean()):.4f}; latents {tuple(latents.shape)}")
-    if tuple(images.shape) != shape or not finite or not spread > 0:
-        raise AssertionError("the avatar's images are not finite, non-constant and "
-                             f"of shape {shape}")
-    if (launches != want or want["depth_attention_ctx"] != 500
-            or want["flash_attention"] != 250):
-        raise AssertionError(f"launch counts {launches}, expected {want}")
+    want = avatar_launches(kernels, cfg, k1_shapes, k2_shape, gn_avatar)
+    _, _, launches = timed_avatar(sampler, batch, kernels, want, "phase 4")
+    if want["depth_attention_ctx"] != 500 or want["flash_attention"] != 250:
+        raise AssertionError(f"expected launches {want}")
 
     # 5. where one denoising step's device time goes
     profile_step(sampler, batch)
-    del sampler, model, images, latents
+    del sampler, model
     torch.cuda.empty_cache()
 
     # 6. training
     expected = train_expected_launches(tshapes)
-    train_launches, train_ms, train_peak = train_phase(cfg, device, kernels, expected)
+    train_launches, train_ms, train_peak, gn_train = train_phase(cfg, device, kernels,
+                                                                 expected)
+    censuses.append(("training", gn_train))
+    torch.cuda.empty_cache()
 
-    # 7. results
+    # 7. the other configurations
+    for label, ocfg in other_configs().items():
+        model, batch, _ = step_check(ocfg, device, f"phase 7 {label}")
+        o_avatar, o_step = avatar_census(model, batch)
+        censuses.append((label, o_step))
+        if label != "spatial_volume":
+            sampler = SyncDDIMSampler(model, sample_steps=ocfg.model.sample_steps)
+            timed_avatar(sampler, batch, kernels,
+                         avatar_launches(kernels, ocfg, k1_shapes, k2_shape, o_avatar),
+                         f"phase 7 {label}", warmup=label == "thuman")
+            del sampler
+        del model
+        torch.cuda.empty_cache()
+
+    # K4 (phase 2) at every GroupNorm call the censuses found
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        checked["group_norm"] = check_group_norm(censuses, device)
+    log(f"K4 vs plain at {len({k for _, c in censuses for k in c})} shapes: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 8. results
     train_run = f"training: {TRAIN_STEPS} steps of B={TRAIN_BATCH} ({train_ms:.2f} ms each)"
     per_step = {n: c // TRAIN_STEPS for n, c in train_launches.items()}
     serving = lambda name: (launches[name], "serving", "avatar")
@@ -919,6 +1074,13 @@ def main() -> int:
             ("depth_attention", "depth_attention.cu",
              "morphablediffusion_tpu/ops/depth_attention.py:56", training))
     ]
+    gn_names = [k.name for k in gn.KERNELS]
+    entries.append(kernel_entry(
+        "group_norm", "morphablediffusion_torch/csrc/group_norm.cu",
+        "morphablediffusion_tpu/ops/group_norm.py:79", checked["group_norm"],
+        sum(launches[n] for n in gn_names), "serving", "avatar",
+        sum(per_step[n] for n in gn_names), per_call=len(gn_names),
+        peak_flops=PEAK_FP32_FLOPS, list_shapes=False))
     log(f"training peak allocated {train_peak / 2**30:.2f} GiB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     for e in entries:

@@ -1,7 +1,8 @@
 """Conditioning sub-networks for the spatial and frustum volumes.
 
 Counterpart of the JAX package's `models/conditioner.py` (NoisyTargetViewEncoder,
-SMPLFeatureExtractor with pooled inputs, FrustumTV3DNet). Layout is
+SMPLFeatureExtractor with pooled inputs, FrustumTV3DNet, and SpatialTime3DNet,
+which runs only with `use_spatial_volume`). Layout is
 channels-first: 2D maps (B, C, H, W), 3D volumes (B, C, D, H, W); time and
 view embeddings are (B, t_dim) and (B, v_dim).
 """
@@ -138,3 +139,59 @@ class FrustumTV3DNet(nn.Module):
         x1 = self.up1(x2, t, v) + x1
         x0 = self.up2(x1, t, v) + x0
         return {w: x0, w // 2: x1, w // 4: x2, w // 8: x3}
+
+
+class SpatialTimeBlock(nn.Module):
+    """(x + t_proj) -> GN8 -> SiLU -> conv3 stride s (network.py:222-233)."""
+
+    def __init__(self, in_dim, out_dim, stride, t_dim, dtype=torch.float32):
+        super().__init__()
+        self.t_conv = Linear(t_dim, in_dim, dtype=dtype)
+        self.bn = GroupNorm(8, in_dim, act="silu")
+        self.conv = Conv3d(in_dim, out_dim, 3, stride=stride, dtype=dtype)
+
+    def forward(self, x, t):
+        return self.conv(self.bn(x + _bcast(self.t_conv(t), 5)))
+
+
+class SpatialUpTimeBlock(nn.Module):
+    """(x + t_proj) -> GN8 -> SiLU -> 2x transposed conv."""
+
+    def __init__(self, in_dim, out_dim, t_dim, dtype=torch.float32):
+        super().__init__()
+        self.t_conv = Linear(t_dim, in_dim, dtype=dtype)
+        self.norm = GroupNorm(8, in_dim, act="silu")
+        self.conv = ConvTranspose3dTorch(in_dim, out_dim, dtype=dtype)
+
+    def forward(self, x, t):
+        return self.conv(self.norm(x + _bcast(self.t_conv(t), 5)))
+
+
+class SpatialTime3DNet(nn.Module):
+    """3D UNet over the V^3 multi-view volume (network.py:235-283): x (B,
+    in_dim, V, V, V), in_dim = views x 16 view-major; t (B, t_dim) ->
+    (B, dims[0], V, V, V)."""
+
+    def __init__(self, in_dim, t_dim, dims: Sequence[int] = (64, 128, 256, 512),
+                 dtype=torch.float32):
+        super().__init__()
+        d0, d1, d2, d3 = dims
+        self.init_conv = Conv3d(in_dim, d0, 3, dtype=dtype)
+        for name, cin, cout, stride in (
+                ("conv0", d0, d0, 1), ("conv1", d0, d1, 2), ("conv2_0", d1, d1, 1),
+                ("conv2_1", d1, d1, 1), ("conv3", d1, d2, 2), ("conv4_0", d2, d2, 1),
+                ("conv4_1", d2, d2, 1), ("conv5", d2, d3, 2), ("conv6_0", d3, d3, 1),
+                ("conv6_1", d3, d3, 1)):
+            self.add_module(name, SpatialTimeBlock(cin, cout, stride, t_dim, dtype))
+        self.conv7 = SpatialUpTimeBlock(d3, d2, t_dim, dtype)
+        self.conv8 = SpatialUpTimeBlock(d2, d1, t_dim, dtype)
+        self.conv9 = SpatialUpTimeBlock(d1, d0, t_dim, dtype)
+
+    def forward(self, x, t):
+        conv0 = self.conv0(self.init_conv(x), t)
+        conv2 = self.conv2_1(self.conv2_0(self.conv1(conv0, t), t), t)
+        conv4 = self.conv4_1(self.conv4_0(self.conv3(conv2, t), t), t)
+        x = self.conv6_1(self.conv6_0(self.conv5(conv4, t), t), t)
+        x = conv4 + self.conv7(x, t)
+        x = conv2 + self.conv8(x, t)
+        return conv0 + self.conv9(x, t)

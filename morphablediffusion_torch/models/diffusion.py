@@ -48,14 +48,13 @@ TrainingDraws = Dict[str, torch.Tensor]
 
 class MorphableDiffusion(nn.Module):
     """The model. `device` defaults to the CUDA card and raises without one;
-    pass device="cpu" to run on the CPU. Only the coarse mesh-voxel mode
-    without the spatial-time net and without W8A8 is ported."""
+    pass device="cpu" to run on the CPU. W8A8 serving (unet.w8a8) is not
+    ported yet."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.mesh_voxel_mode != "coarse" or cfg.use_spatial_volume or cfg.unet.w8a8:
-            raise NotImplementedError("the port runs mesh_voxel_mode='coarse' "
-                                      "without use_spatial_volume or unet.w8a8")
+        if cfg.unet.w8a8:
+            raise NotImplementedError("the port does not run unet.w8a8 yet")
         dev = resolve_device(device)
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
@@ -78,7 +77,11 @@ class MorphableDiffusion(nn.Module):
                 projection=cfg.projection,
                 voxel_grid_shape=cfg.voxel_grid_shape,
                 coarse_voxel_size=cfg.coarse_voxel_size,
-                volume_dims=cfg.unet.volume_dims, dtype=dtype)
+                volume_dims=cfg.unet.volume_dims, dtype=dtype, view_num=cfg.view_num,
+                use_spatial_volume=cfg.use_spatial_volume,
+                mesh_voxel_mode=cfg.mesh_voxel_mode,
+                fine_grid_shape=cfg.fine_grid_shape,
+                fine_voxel_size=cfg.fine_voxel_size)
             u = cfg.unet
             self.unet = DepthWiseUNet(
                 u.in_channels, u.model_channels, u.out_channels, u.num_res_blocks,

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from morphablediffusion_torch.ops import flash_attention as flash
-from morphablediffusion_torch.ops.group_norm import group_norm_shifted
+from morphablediffusion_torch.ops import group_norm as gn
 
 
 class Linear(nn.Linear):
@@ -98,7 +98,8 @@ class ConvTranspose3dTorch(nn.ConvTranspose3d):
 class GroupNorm(nn.Module):
     """GroupNorm with fp32 statistics and an optional fused activation; the
     output keeps the input dtype. `shift` (B, C) normalizes x + shift without
-    materializing it (the ResBlock time-embedding path)."""
+    materializing it (the ResBlock time-embedding path). On the card it runs
+    the K4 kernel (`ops.group_norm`)."""
 
     def __init__(self, num_groups, channels, epsilon=1e-5, act: Optional[str] = None):
         super().__init__()
@@ -109,8 +110,13 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, shift=None):
-        return group_norm_shifted(x, shift, self.weight, self.bias, self.num_groups,
-                                  self.epsilon, self.act)
+        if x.is_cuda:
+            # the kernel takes contiguous NCHW / NCDHW; cuDNN may hand back
+            # channels-last maps (the plain version on the CPU takes any
+            # layout, and a copy would move the rounding of its backward)
+            x = x.contiguous()
+        return gn.group_norm_shifted(x, shift, self.weight, self.bias, self.num_groups,
+                                     self.epsilon, self.act)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -1,13 +1,15 @@
 """Spatial-volume conditioning orchestrator.
 
-Counterpart of the JAX package's `models/spatial_volume.py::SpatialVolumeNet`
-(coarse mesh-voxel mode, no SpatialTime3DNet):
+Counterpart of the JAX package's `models/spatial_volume.py::SpatialVolumeNet`:
 
   * `construct_spatial_volume` encodes all N noisy views, unprojects a shared
     V^3 grid in [-L, L]^3 into every view, samples the view-MEAN volume at the
     mesh vertices (exact: trilinear sampling is linear in the volume, and the
-    per-vertex linear commutes with the mean), runs the mesh voxel net and
-    queries it back on the grid -> (B, 64, V, V, V).
+    per-vertex linear commutes with the mean), runs the mesh voxel net (the
+    coarse `MeshVoxelNet`, or `FineMeshVoxelNet` with mesh_voxel_mode='fine')
+    and queries it back on the grid -> (B, 64, V, V, V). With
+    `use_spatial_volume` the SpatialTime3DNet of the view-major unprojected
+    volume (B, N*16, V, V, V) is added to it.
   * `construct_view_frustum_volume` builds a (D, h, w) camera-frustum ray
     volume per target view with near/far = camera distance -+ L_f, samples the
     spatial volume along it, and runs FrustumTV3DNet -> {width: volume}.
@@ -27,8 +29,9 @@ from morphablediffusion_torch.models.conditioner import (
     FrustumTV3DNet,
     NoisyTargetViewEncoder,
     SMPLFeatureExtractor,
+    SpatialTime3DNet,
 )
-from morphablediffusion_torch.models.mesh_voxel import MeshVoxelNet
+from morphablediffusion_torch.models.mesh_voxel import FineMeshVoxelNet, MeshVoxelNet
 from morphablediffusion_torch.ops import geometry
 from morphablediffusion_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
 
@@ -48,7 +51,10 @@ class SpatialVolumeNet(nn.Module):
                  voxel_grid_shape: Tuple[int, int, int] = (48, 48, 48),
                  coarse_voxel_size=0.02,
                  volume_dims: Tuple[int, ...] = (64, 128, 256, 512),
-                 dtype=torch.float32):
+                 dtype=torch.float32, view_num=16, use_spatial_volume=False,
+                 mesh_voxel_mode="coarse",
+                 fine_grid_shape: Tuple[int, int, int] = (128, 144, 128),
+                 fine_voxel_size=0.005):
         super().__init__()
         self.input_image_size = input_image_size
         self.spatial_volume_size = spatial_volume_size
@@ -58,9 +64,18 @@ class SpatialVolumeNet(nn.Module):
         self.projection = projection
         self.target_encoder = NoisyTargetViewEncoder(t_dim, v_dim, 4, 16, 16, dtype)
         self.smpl_feature_extractor = SMPLFeatureExtractor(16, 16, dtype)
-        self.mesh_voxel = MeshVoxelNet(16, voxel_grid_shape, coarse_voxel_size,
-                                       dtype=dtype)
+        if mesh_voxel_mode == "fine":
+            self.mesh_voxel = FineMeshVoxelNet(16, fine_grid_shape, fine_voxel_size, dtype)
+        elif mesh_voxel_mode == "coarse":
+            self.mesh_voxel = MeshVoxelNet(16, voxel_grid_shape, coarse_voxel_size,
+                                           dtype=dtype)
+        else:
+            raise ValueError(f"mesh_voxel_mode {mesh_voxel_mode!r}: coarse or fine")
         self.frustum_volume_feats = FrustumTV3DNet(64, t_dim, v_dim, volume_dims, dtype)
+        self.use_spatial_volume = use_spatial_volume
+        if use_spatial_volume:
+            self.spatial_volume_feats = SpatialTime3DNet(view_num * 16, t_dim,
+                                                         (64, 128, 256, 512), dtype)
 
     @property
     def frustum_volume_size(self) -> int:
@@ -98,7 +113,13 @@ class SpatialVolumeNet(nn.Module):
         big = torch.tensor(1e9, dtype=vertices.dtype, device=vertices.device)
         min_dhw = torch.where(vert_mask[..., None] > 0, vert_dhw, big).amin(1)
         query_dhw = grid_xyz.flip(-1)[None].expand(B, V, V, V, 3)
-        return self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw)
+        volume = self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw)
+        if self.use_spatial_volume:
+            # view-major channels n * 16 + c, as the JAX package's
+            # (B, V, V, V, N*16) volume
+            mv = unproj.reshape(B, N * C, V, V, V)
+            volume = volume + self.spatial_volume_feats(mv, t_embed)
+        return volume
 
     def construct_view_frustum_volume(self, spatial_volume, t_embed, v_embed_sel,
                                       poses, Ks):

@@ -131,10 +131,11 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor,
+               device: torch.device | None = None) -> None:
     """Raise unless every tensor is a contiguous `dtype` tensor on the CUDA
-    device of the first one."""
-    dev = tensors[0].device
+    device `device` (default: that of the first one)."""
+    dev = tensors[0].device if device is None else device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
@@ -142,3 +143,19 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensors must be contiguous")
         if t.dtype != dtype:
             raise ValueError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+
+
+def recompute_grads(fn, inputs, needs, grad_out):
+    """Gradients of fn(*inputs) for the inputs that need one (None for the
+    others and for inputs that are None), recomputed through fn, a kernel's
+    plain version: the backward of the kernels' autograd Functions. The
+    cotangent is cast to the recomputed output's dtype (the kernel's output
+    may differ from it)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(n)
+                  for t, n in zip(inputs, needs)]
+        out = fn(*leaves)
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype)))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)

@@ -160,18 +160,6 @@ def attention_kernel(q, k, v, num_heads: int):
     return out
 
 
-def _recompute_grads(fn, inputs, needs, grad_out):
-    """Gradients of fn(*inputs) for the inputs that need one, recomputed
-    through the plain version; the cotangent is cast to the recomputed
-    output's dtype (the kernel's output may differ from it)."""
-    with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
-        out = fn(*leaves)
-        wanted = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype)))
-    return tuple(next(grads) if t.requires_grad else None for t in leaves)
-
-
 class _DepthAttention(torch.autograd.Function):
     """Forward: the K3 kernel. Backward: recompute through `_reference`."""
 
@@ -184,7 +172,7 @@ class _DepthAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         heads = ctx.num_heads
-        grads = _recompute_grads(lambda q, k, v: _reference(q, k, v, heads),
+        grads = _cuda.recompute_grads(lambda q, k, v: _reference(q, k, v, heads),
                                  ctx.saved_tensors, ctx.needs_input_grad[:3], g)
         return grads + (None,)
 
@@ -222,7 +210,7 @@ class _DepthAttentionCtx(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         args = ctx.args
-        grads = _recompute_grads(lambda *t: _ctx_full(*t, *args), ctx.saved_tensors,
+        grads = _cuda.recompute_grads(lambda *t: _ctx_full(*t, *args), ctx.saved_tensors,
                                  ctx.needs_input_grad[:9], g)
         return grads + (None,) * 3
 

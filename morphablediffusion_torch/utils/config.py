@@ -91,7 +91,7 @@ class ModelConfig:
     #              trains from scratch. Published xyzc_net weights do NOT apply.
     #   'fine'   — dense emulation of the reference's spconv SparseConvNet at
     #              0.005 m, which takes published `spatial_volume.xyzc_net.*`
-    #              checkpoints; not ported yet.
+    #              checkpoints (models/mesh_voxel.py FineMeshVoxelNet).
     mesh_voxel_mode: str = "coarse"
     fine_grid_shape: Tuple[int, int, int] = (128, 144, 128)
     fine_voxel_size: float = 0.005

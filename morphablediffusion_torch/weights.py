@@ -19,14 +19,18 @@ import torch
 from torch import nn
 
 from morphablediffusion_torch.models import layers
-from morphablediffusion_torch.models.mesh_voxel import MaskedInstanceNorm
+from morphablediffusion_torch.models.mesh_voxel import BNActive, MaskedInstanceNorm
 from morphablediffusion_torch.utils import resolve_device
 
-# flax kernels of FrustumTVUpBlock.conv (ConvTranspose3dTorch), stored
-# conv-style and spatially flipped
-_TRANSPOSED = re.compile(r"(^|/)up\d+/conv/kernel$")
+# flax kernels of the ConvTranspose3dTorch convs, stored conv-style and
+# spatially flipped: FrustumTV3DNet's up0-up2 and SpatialTime3DNet's
+# conv7-conv9 (their other blocks' `conv` is a plain conv)
+_TRANSPOSED = re.compile(r"(^|/)(up\d+|conv[789])/conv/kernel$")
 
-NORM_MODULES = (layers.GroupNorm, layers.LayerNorm, MaskedInstanceNorm)
+# normalization modules: parameters seeded as scale 1 (and BNActive's
+# running variance 1), the rest 0, and kept fp32 when the model is cast
+NORM_MODULES = (layers.GroupNorm, layers.LayerNorm, MaskedInstanceNorm, BNActive)
+_ONE_AT_INIT = ("weight", "var")
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -91,15 +95,16 @@ def _fan_in(module: nn.Module, name: str, p: torch.Tensor) -> int:
 @torch.no_grad()
 def seeded_params(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter with seeded initializer-family values: norm
-    scales 1, biases 0, kernels N(0, 1/fan_in) with fan_in from the JAX
-    shape, other 1-D leaves N(0, 0.02^2). Draws from one torch.Generator on
+    scales (and BNActive's running variance) 1, their other parameters and
+    all biases 0, kernels N(0, 1/fan_in) with fan_in from the JAX shape,
+    other 1-D leaves N(0, 0.02^2). Draws from one torch.Generator on
     the model's device, in parameter order. Returns the model."""
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     for mod_name, module in model.named_modules():
         for name, p in module.named_parameters(recurse=False):
             if isinstance(module, NORM_MODULES):
-                p.fill_(1.0 if name == "weight" else 0.0)
+                p.fill_(1.0 if name in _ONE_AT_INIT else 0.0)
             elif name == "bias":
                 p.zero_()
             elif p.ndim >= 2:

@@ -17,6 +17,7 @@ import torch
 
 from morphablediffusion_torch.ops import depth_attention as da
 from morphablediffusion_torch.ops import flash_attention as fa
+from morphablediffusion_torch.ops import group_norm as gn
 
 pytestmark = pytest.mark.cuda
 REL_L2 = 1e-2
@@ -69,9 +70,8 @@ def test_depth_attention_ctx_kernel(dev, B, W, D, Cc, Ci, heads):
 
 def test_depth_attention_ctx_kernel_is_the_fused_chain(dev):
     """The public entry (moments folded into the affine) against the
-    unfused chain proj -> GroupNorm(relu) -> k/v -> depth attention, fp32."""
-    from morphablediffusion_torch.ops.group_norm import group_norm
-
+    unfused chain proj -> GroupNorm(relu) -> k/v -> depth attention, fp32
+    (plain versions)."""
     B, W, D, Cc, Ci, heads = 2, 8, 6, 32, 64, 4
     g = torch.Generator(dev).manual_seed(1)
     q, ctx = _randn(g, B, Ci, W, W), _randn(g, B, Cc, D, W, W)
@@ -81,7 +81,7 @@ def test_depth_attention_ctx_kernel_is_the_fused_chain(dev):
     out = da.depth_attention_ctx(q, ctx, mean_x, m2, Wp, scale, bias, Wk, Wv, heads)
     f = lambda t: t.float()
     p = torch.einsum("oc,bcdhw->bodhw", f(Wp), f(ctx))
-    y = group_norm(p, scale, bias, 8, 1e-5, "relu")
+    y = gn._reference(p, None, scale, bias, 8, 1e-5, "relu")
     k = torch.einsum("oc,bcdhw->bodhw", f(Wk), y)
     v = torch.einsum("oc,bcdhw->bodhw", f(Wv), y)
     assert _rel(out, da._reference(f(q), k, v, heads)) <= REL_L2
@@ -144,6 +144,33 @@ def test_flash_attention_backward_kernels(dev, B, L, heads, hd):
         assert got.dtype == torch.bfloat16 and _rel(got, want) <= REL_L2
 
 
+@pytest.mark.parametrize("shape,groups,act,eps", [
+    ((32, 128, 32, 32), 8, "relu", 1e-5),         # DepthTransformer at width 32
+    ((32, 1280, 4, 4), 32, "silu", 1e-5),         # the UNet's bottom, S = 16
+    ((16, 64, 48, 32, 32), 8, "silu", 1e-5),      # frustum net, 3-D
+    ((2, 128, 256, 256), 32, "silu", 1e-6),       # VAE decoder, rows split
+    ((32, 16, 32, 32), 8, "silu", 1e-5),          # target encoder, cg = 2
+    ((1, 512), 8, "relu", 1e-5),                  # zero-context row, S = 1
+    ((3, 40, 5, 7), 4, None, 1e-6),               # S not a multiple of 8
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_group_norm_kernel(dev, shape, groups, act, eps, dtype, shifted):
+    g = torch.Generator(dev).manual_seed(7)
+    B, C = shape[:2]
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+    beta = 0.1 * torch.randn(C, generator=g, device=dev)
+    shift = torch.randn(B, C, generator=g, device=dev).to(dtype) if shifted else None
+    before = [k.launches for k in gn.KERNELS]
+    out = gn.group_norm_shifted(x, shift, gamma, beta, groups, eps, act)
+    torch.cuda.synchronize()
+    assert [k.launches for k in gn.KERNELS] == [n + 1 for n in before]
+    assert out.shape == x.shape and out.dtype == dtype
+    want = gn._reference(x, shift, gamma, beta, groups, eps, act)
+    assert _rel(out, want) <= (REL_L2 if dtype == torch.bfloat16 else 1e-5)
+
+
 def test_gradients_reach_every_input_through_each_wrapper(dev):
     """Each CUDA wrapper is an autograd Function: its output keeps the graph
     and non-zero gradients reach q, k and v (and all nine inputs of the
@@ -179,6 +206,16 @@ def test_gradients_reach_every_input_through_each_wrapper(dev):
     assert all(t is not None and t.float().abs().sum() > 0 for t in got)
     assert _rel(out, da._ctx_full(*nine, 4, 8, 1e-5)) <= REL_L2
 
+    # K4, with the ResBlock's shift: gradients for x, shift, gamma and beta
+    x = _randn(g, 2, 64, 8, 8)
+    four = [x, _randn(g, 2, 64), 1.0 + 0.1 * torch.randn(64, generator=g, device=dev),
+            0.1 * torch.randn(64, generator=g, device=dev)]
+    before = gn.APPLY_KERNEL.launches
+    out, got = grads(lambda *t: gn.group_norm_shifted(*t, 32, 1e-5, "silu"), four)
+    assert gn.APPLY_KERNEL.launches == before + 1
+    assert all(t is not None and t.float().abs().sum() > 0 for t in got)
+    assert _rel(out, gn._reference(*four, 32, 1e-5, "silu")) <= REL_L2
+
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     g = torch.Generator(dev).manual_seed(3)
@@ -201,3 +238,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         da.depth_attention(_randn(g, 2, 64, 4, 4), k.transpose(3, 4), k, 4)
     with pytest.raises(ValueError, match="head_dim"):
         da.depth_attention(_randn(g, 1, 2048, 6, 6), *(_randn(g, 1, 2048, 2, 6, 6),) * 2, 1)
+    x, gamma, beta = _randn(g, 2, 64, 8, 8), torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.group_norm(x.transpose(2, 3), gamma, beta, 32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gn.group_norm(x, gamma.cpu(), beta, 32)
+    with pytest.raises(ValueError, match="not divisible"):
+        gn.group_norm(x, gamma, beta, 24)
+    with pytest.raises(ValueError, match="float32"):
+        gn.group_norm(x, gamma.bfloat16(), beta, 32)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        gn.group_norm(x.half(), gamma, beta, 32)

@@ -24,7 +24,7 @@ from morphablediffusion_torch.models.diffusion import MorphableDiffusion as TMod
 from morphablediffusion_torch.utils import config as port_config
 from morphablediffusion_torch.utils import resolve_device
 from morphablediffusion_tpu.models.diffusion import MorphableDiffusion as JModel
-from tests.test_torch_sampler import _init_inference
+from tests.torch_parity import _init_inference
 from tests.tiny import tiny_batch, tiny_config
 from tests.torch_parity import port_model_config, seeded_tree
 

@@ -16,72 +16,18 @@ variance of both packages cancels to ~1e-3: the JAX package then disagrees
 with itself (jit vs eager) by more than with the port. Those projections are
 held to 1e-4 on well-conditioned inputs in test_torch_conditioning.py."""
 
-import jax
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
-from morphablediffusion_torch.models.diffusion import MorphableDiffusion as TModel
-from morphablediffusion_torch.ops import depth_attention as t_da
-from morphablediffusion_torch.ops import flash_attention as t_fa
-from morphablediffusion_torch.sampling import SyncDDIMSampler as TSampler
-from morphablediffusion_tpu.models.diffusion import MorphableDiffusion as JModel
-from morphablediffusion_tpu.sampling import SyncDDIMSampler as JSampler
-from tests.tiny import tiny_batch, tiny_config
-from tests.torch_parity import (assert_close, load_into, port_model_config, seeded_tree, tt,
-                                well_conditioned)
+from tests.tiny import tiny_config
+from tests.torch_parity import assert_close, sampler_run
 
 TOL = 1e-4
 
 
-def _init_inference(m, batch):
-    """Touches every module the serving path uses."""
-    prep = m.prepare_inference(batch)
-    B = batch["input_image"].shape[0]
-    N, h = m.cfg.view_num, m.cfg.latent_size
-    x = jnp.zeros((B, N, h, h, 4))
-    t = jnp.zeros((B,), jnp.int32)
-    eps = m.predict_eps_cfg(x, t, prep["clip_embed"], prep["x_input"], prep["v_embed"],
-                            batch, 2.0)
-    return m.decode_views(eps)
-
-
 @pytest.fixture(scope="module")
 def slice_run():
-    cfg = tiny_config(view_num=2)
-    jmodel = JModel(cfg.model)
-    batch = tiny_batch(cfg, with_targets=False)
-    params = well_conditioned(seeded_tree(jax.eval_shape(
-        lambda b: jmodel.init(jax.random.key(0), b, method=_init_inference), batch)))
-    jsampler = JSampler(jmodel, sample_steps=cfg.model.sample_steps)
-    rng = jax.random.key(7)
-    prep = jax.jit(lambda p, b: jmodel.apply(p, b, method="prepare_inference"))(params, batch)
-    latents, traj = jax.jit(lambda p, b, pr, r: jsampler.denoise_latents(
-        p, b, pr, r, 2.0, collect_trajectory=True))(params, batch, prep, rng)
-    images = jax.jit(lambda p, z: jmodel.apply(p, z, method="decode_views"))(params, latents)
-
-    # the JAX sampler's noise stream, regenerated for injection
-    m = cfg.model
-    shape = (1, m.view_num, m.latent_size, m.latent_size, 4)
-    step_rng, init_rng = jax.random.split(rng)
-    x_init = jax.random.normal(init_rng, shape, jnp.float32)
-    noises = [jax.random.normal(jax.random.fold_in(step_rng, i), shape, jnp.float32)
-              for i in range(m.sample_steps)]
-
-    t_da.KERNEL.launches = t_fa.KERNEL.launches = 0
-    port = load_into(TModel(port_model_config(m), device="cpu"), params)
-    tb = {k: tt(v) for k, v in batch.items()}
-    tsampler = TSampler(port, sample_steps=m.sample_steps)
-    t_prep = port.prepare_inference(tb)
-    t_lat, t_traj = tsampler.denoise_latents(tb, t_prep, 2.0, x_init=tt(x_init),
-                                             noises=[tt(n) for n in noises],
-                                             collect_trajectory=True)
-    t_images, t_lat2 = tsampler.sample(tb, 2.0, x_init=tt(x_init),
-                                       noises=[tt(n) for n in noises])
-    return dict(prep=prep, traj=traj, latents=latents, images=images, t_prep=t_prep,
-                t_traj=t_traj, t_lat=t_lat, t_images=t_images, t_lat2=t_lat2,
-                launches=(t_da.KERNEL.launches, t_fa.KERNEL.launches))
+    return sampler_run(tiny_config(view_num=2))
 
 
 def test_prepared_encodings(slice_run):
@@ -107,4 +53,4 @@ def test_decoded_images(slice_run):
 
 
 def test_cpu_run_launches_no_kernel(slice_run):
-    assert slice_run["launches"] == (0, 0)
+    assert slice_run["launches"] == (0,) * 5  # K1, K3, K2 and K4's two

@@ -236,3 +236,89 @@ def port_train_model(s, jcfg=None):
     model = load_into(MorphableDiffusion(pcfg.model, device="cpu"), s["params"])
     cast_frozen(model)
     return model, pcfg
+
+
+# the slice as a whole (tests/test_torch_sampler.py and the configuration
+# tests) ------------------------------------------------------------------
+
+
+def _init_inference(m, batch):
+    """Method for the JAX MorphableDiffusion that touches every module the
+    serving path uses."""
+    prep = m.prepare_inference(batch)
+    B = batch["input_image"].shape[0]
+    N, h = m.cfg.view_num, m.cfg.latent_size
+    x = jnp.zeros((B, N, h, h, 4))
+    t = jnp.zeros((B,), jnp.int32)
+    eps = m.predict_eps_cfg(x, t, prep["clip_embed"], prep["x_input"], prep["v_embed"],
+                            batch, 2.0)
+    return m.decode_views(eps)
+
+
+def sampler_run(cfg, adjust=None):
+    """The JAX SyncDDIMSampler and the port's on cfg (a JAX Config) and
+    tests/tiny.py's batch, from the same well-conditioned seeded weights
+    (then `adjust(params)` if given) and the same noise stream.
+
+    The JAX noise stream (`split`, then `fold_in(rng, index)` per step,
+    sampling/ddim.py:75-96) is regenerated and injected into the port.
+    Returns both sides' prepared encodings, trajectories, final latents and
+    decoded images, and the kernel launches the port's CPU run made."""
+    from morphablediffusion_torch.models.diffusion import MorphableDiffusion as TModel
+    from morphablediffusion_torch.ops import depth_attention as t_da
+    from morphablediffusion_torch.ops import flash_attention as t_fa
+    from morphablediffusion_torch.ops import group_norm as t_gn
+    from morphablediffusion_torch.sampling import SyncDDIMSampler as TSampler
+    from morphablediffusion_tpu.models.diffusion import MorphableDiffusion as JModel
+    from morphablediffusion_tpu.sampling import SyncDDIMSampler as JSampler
+    from tests.tiny import tiny_batch
+
+    jmodel = JModel(cfg.model)
+    batch = tiny_batch(cfg, with_targets=False)
+    params = well_conditioned(seeded_tree(jax.eval_shape(
+        lambda b: jmodel.init(jax.random.key(0), b, method=_init_inference), batch)))
+    if adjust is not None:
+        params = adjust(params)
+    jsampler = JSampler(jmodel, sample_steps=cfg.model.sample_steps)
+    rng = jax.random.key(7)
+    prep = jax.jit(lambda p, b: jmodel.apply(p, b, method="prepare_inference"))(params, batch)
+    latents, traj = jax.jit(lambda p, b, pr, r: jsampler.denoise_latents(
+        p, b, pr, r, 2.0, collect_trajectory=True))(params, batch, prep, rng)
+    images = jax.jit(lambda p, z: jmodel.apply(p, z, method="decode_views"))(params, latents)
+
+    m = cfg.model
+    shape = (1, m.view_num, m.latent_size, m.latent_size, 4)
+    step_rng, init_rng = jax.random.split(rng)
+    x_init = jax.random.normal(init_rng, shape, jnp.float32)
+    noises = [jax.random.normal(jax.random.fold_in(step_rng, i), shape, jnp.float32)
+              for i in range(m.sample_steps)]
+
+    kernels = (t_da.KERNEL, t_da.DEPTH_KERNEL, t_fa.KERNEL, *t_gn.KERNELS)
+    for k in kernels:
+        k.launches = 0
+    port = load_into(TModel(port_model_config(m), device="cpu"), params)
+    tb = {k: tt(v) for k, v in batch.items()}
+    tsampler = TSampler(port, sample_steps=m.sample_steps)
+    t_prep = port.prepare_inference(tb)
+    t_lat, t_traj = tsampler.denoise_latents(tb, t_prep, 2.0, x_init=tt(x_init),
+                                             noises=[tt(n) for n in noises],
+                                             collect_trajectory=True)
+    t_images, t_lat2 = tsampler.sample(tb, 2.0, x_init=tt(x_init),
+                                       noises=[tt(n) for n in noises])
+    return dict(prep=prep, traj=traj, latents=latents, images=images, t_prep=t_prep,
+                t_traj=t_traj, t_lat=t_lat, t_images=t_images, t_lat2=t_lat2,
+                launches=tuple(k.launches for k in kernels))
+
+
+def assert_slice_matches(r, tol: float = 1e-4):
+    """sampler_run's two sides agree: the prepared encodings, every step of
+    the trajectory, the decoded images (sample() is denoise + decode), and
+    the port's CPU run launched no kernel."""
+    for k in ("x_input", "clip_embed", "v_embed"):
+        assert_close(r["t_prep"][k], r["prep"][k], tol)
+    assert len(r["t_traj"]) == r["traj"].shape[0]
+    for t_x, j_x in zip(r["t_traj"], r["traj"]):
+        assert_close(t_x, j_x, tol)
+    assert_close(r["t_images"], r["images"], tol)
+    assert torch.equal(r["t_lat2"], r["t_lat"])
+    assert r["launches"] == (0,) * len(r["launches"])
