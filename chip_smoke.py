@@ -12,13 +12,15 @@ Phases (any failure exits non-zero):
      (one nvcc per source, all started together); print the build seconds and
      the card's name and power limit as nvidia-smi gives them;
   2. hold each kernel against its plain PyTorch version at every shape the
-     serving path and the training path give it (K1 and K2 at both; K2
-     also with its row logsumexp at the serving shape, which serving does
-     not write), in bf16, within relative L2 1e-2, and time the kernel, the
-     plain version and, as the yardstick `library_ms` (the port never calls
-     it), F.scaled_dot_product_attention for flash attention and depth
-     attention, and its backward for the flash backward kernels (K2-dkv and
-     K2-dq against the plain version's autograd gradients). K4 (GroupNorm)
+     serving path and the training path give it (K1 and K2 at both; K2's
+     row logsumexp within 1e-4 of the plain one), in bf16, within relative
+     L2 1e-2, and time the kernel, the plain version and, as the yardstick
+     `library_ms` (the port never calls it), F.scaled_dot_product_attention
+     for flash attention and depth attention, and its backward for the
+     flash backward kernels (K2-dkv and K2-dq against the plain version's
+     autograd gradients). K2 and SDPA are also timed on the device alone
+     (torch.profiler), and K2's registers, shared memory and spill bytes
+     are read from its `-Xptxas -v` build log (any spill fails). K4 (GroupNorm)
      is held the same way at every GroupNorm call that the censuses of
      phases 3, 6 and 7 find, after phase 7 (its yardstick: F.group_norm and
      the activation);
@@ -63,9 +65,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -217,6 +221,76 @@ def bound_ms(flops: float, nbytes: float):
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def ptxas_resources(kernel, symbol: str):
+    """Registers, static shared memory and spill bytes of the entry function
+    whose mangled name contains `symbol`, from the kernel's `-Xptxas -v`
+    build log; None if this process did not build it."""
+    lines = kernel.build_log.splitlines()
+    start = [i for i, ln in enumerate(lines) if "Compiling entry function" in ln and symbol in ln]
+    if not start:
+        return None
+    res = {}
+    for ln in lines[start[0] + 1:]:
+        if "Compiling entry function" in ln:
+            break
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            res["spill_stores"], res["spill_loads"] = int(m[1]), int(m[2])
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            res["registers"] = int(m[1])
+            smem = re.search(r"(\d+) bytes smem", ln)
+            res["static_smem"] = int(smem[1]) if smem else 0
+    return res
+
+
+def k2_resources():
+    """K2's forward at head_dim 40: the ptxas resources, and the dynamic
+    shared memory of a block as the library reports it. Raises if ptxas
+    reports spills."""
+    from morphablediffusion_torch.ops import flash_attention as fa
+
+    res = ptxas_resources(fa.KERNEL, "md_flash_fwd_kernelILi40E")
+    lib = ctypes.CDLL(str(fa.KERNEL.lib_path()))
+    smem, blocks = lib.md_flash_attention_fwd_smem_bytes(), lib.md_flash_attention_fwd_blocks_per_sm()
+    if res is None:
+        return (f"dynamic smem {smem} B, {blocks} blocks per SM; ptxas resources not in this "
+                "process's build log")
+    if res["spill_stores"] or res["spill_loads"]:
+        raise AssertionError(f"K2 forward spills: {res}")
+    return (f"{res['registers']} registers, dynamic smem {smem} B (static {res['static_smem']} B), "
+            f"{blocks} blocks per SM, spill stores {res['spill_stores']} B, spill loads "
+            f"{res['spill_loads']} B")
+
+
+def device_events(prof):
+    """The device activities of a torch.profiler run: kernels, copies and
+    sets, without the device-side spans of user annotations (such as
+    `Optimizer.step#AdamW.step`), which overlap the kernels inside them."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, iters: int = 10):
+    """Device time per call of fn, summed over every kernel it launches,
+    over `iters` calls under torch.profiler after a warm-up call: the
+    kernels' own time, without the host's launch path. Returns (ms, the
+    kernels' names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = device_events(prof)
+    if not kern:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return (sum(e.time_range.elapsed_us() for e in kern) / iters / 1e3,
+            sorted({e.name[:90] for e in kern}))
+
+
 def check_k1(shapes, device, rn, iters: int, path: str):
     """K1 against `_ctx_reference` at each of `shapes` (one row each, tagged
     with the path, serving or training, whose launches per_step counts)."""
@@ -273,20 +347,23 @@ def check_kernels(k1_shapes, k2_shape, device, iters: int = 10):
     plain = fa.attention_reference(q, k, v, heads)
     torch.cuda.synchronize()
     err, mae = rel_l2(out, plain), float((out.float() - plain.float()).abs().max())
+    lse_err = rel_l2(fa._forward(q, k, v, heads)[1], fa.logsumexp_reference(q, k, heads))
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, heads), iters)
     plain_ms = cuda_ms(lambda: fa.attention_reference(q, k, v, heads), max(2, iters // 4))
-    # serving passes no row-statistics pointer; the cost of writing them
-    lse_ms = cuda_ms(lambda: fa._forward(q, k, v, heads, with_lse=True), iters)
     qh, kh, vh = (t.reshape(B, L, heads, hd).transpose(1, 2).contiguous() for t in (q, k, v))
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
+    dev_ms, _ = device_ms(lambda: fa.flash_attention(q, k, v, heads))
+    lib_dev_ms, lib_names = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     flops, nbytes = k2_cost(s)
     b_ms, b_by = bound_ms(flops, nbytes)
     log(f"K2 flash_attention (serving) B={B} L={L} heads={heads} hd={hd}: rel_l2={err:.3e} "
-        f"max_abs={mae:.3e} ms={ms:.4f} (with the row logsumexp {lse_ms:.4f}) "
-        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by}; "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) x{s['per_step']}/step")
-    if not err <= REL_L2_KERNEL:
-        raise AssertionError(f"K2: rel L2 {err:.3e} > {REL_L2_KERNEL}")
+        f"max_abs={mae:.3e} lse rel_l2={lse_err:.2e} ms={ms:.4f} (device {dev_ms:.4f}) "
+        f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} (device {lib_dev_ms:.4f}) "
+        f"bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
+        f"{b_ms / ms:.1%} of the bound (device {b_ms / dev_ms:.1%}) x{s['per_step']}/step")
+    log(f"  K2 forward resources: {k2_resources()}; SDPA ran {lib_names}")
+    if not (err <= REL_L2_KERNEL and lse_err <= 1e-4):
+        raise AssertionError(f"K2: rel L2 {err:.3e} > {REL_L2_KERNEL} or lse {lse_err:.2e} > 1e-4")
     results["flash_attention"] = [dict(
         shape=f"B={B},L={L},heads={heads},hd={hd}", path="serving", per_step=s["per_step"], ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, flops=flops, bytes=nbytes, rel_l2=err,
@@ -388,7 +465,7 @@ def check_train_kernels(shapes, device, iters: int = 10):
     B, L, heads, hd = s["B"], s["L"], s["heads"], s["hd"]
     q, k, v, dout = (rn(B, L, heads * hd) for _ in range(4))
     with torch.no_grad():
-        out, lse = fa._forward(q, k, v, heads, with_lse=True)
+        out, lse = fa._forward(q, k, v, heads)
         di = fa.row_dot(out, dout, heads)
         dk, dv = fa.backward_dkv(q, k, v, dout, lse, di, heads)
         dq = fa.backward_dq(q, k, v, dout, lse, di, heads)
@@ -405,8 +482,8 @@ def check_train_kernels(shapes, device, iters: int = 10):
     with torch.no_grad():
         dkv_ms = cuda_ms(lambda: fa.backward_dkv(q, k, v, dout, lse, di, heads), iters)
         dq_ms = cuda_ms(lambda: fa.backward_dq(q, k, v, dout, lse, di, heads), iters)
-        fwd_lse_ms = cuda_ms(lambda: fa._forward(q, k, v, heads, with_lse=True), iters)
-        fwd_ms = cuda_ms(lambda: fa._forward(q, k, v, heads, with_lse=False), iters)
+        fwd_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, heads), iters)
+        fwd_dev_ms, _ = device_ms(lambda: fa.flash_attention(q, k, v, heads))
         plain_fwd_ms = cuda_ms(lambda: fa.attention_reference(q, k, v, heads), max(2, iters // 4))
     plain_iters = max(2, iters // 4)
     plain_dkv_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves[1:], dout,
@@ -417,6 +494,7 @@ def check_train_kernels(shapes, device, iters: int = 10):
                   .requires_grad_(True) for t in (q, k, v))
     with torch.no_grad():
         lib_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters)
+        lib_fwd_dev_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     lib_out = F.scaled_dot_product_attention(qh, kh, vh)
     douth = dout.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
     lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), douth,
@@ -424,9 +502,11 @@ def check_train_kernels(shapes, device, iters: int = 10):
     flops, nbytes = k2_cost(s)
     b_ms, b_by = bound_ms(flops, nbytes)
     log(f"K2 flash_attention (training) B={B} L={L} heads={heads} hd={hd}: rel_l2="
-        f"{fwd_err:.3e} max_abs={fwd_mae:.3e} ms={fwd_lse_ms:.4f} with the row logsumexp "
-        f"(without {fwd_ms:.4f}) plain_ms={plain_fwd_ms:.4f} sdpa_ms={lib_fwd_ms:.4f} "
-        f"bound_ms={b_ms:.5f} ({b_by}) x{s['per_step']}/step")
+        f"{fwd_err:.3e} max_abs={fwd_mae:.3e} ms={fwd_ms:.4f} (device {fwd_dev_ms:.4f}) "
+        f"plain_ms={plain_fwd_ms:.4f} sdpa_ms={lib_fwd_ms:.4f} (device {lib_fwd_dev_ms:.4f}) "
+        f"bound_ms={b_ms:.5f} ({b_by}), {b_ms / fwd_ms:.1%} of the bound (device "
+        f"{b_ms / fwd_dev_ms:.1%}) x{s['per_step']}/step")
+    log(f"  K2 forward resources: {k2_resources()}")
     log(f"K2 backward B={B} L={L} heads={heads} hd={hd}: rel_l2 dq={errs['dq']:.3e} "
         f"dk={errs['dk']:.3e} dv={errs['dv']:.3e}; lse rel_l2={lse_err:.2e}; "
         f"dkv_ms={dkv_ms:.4f} dq_ms={dq_ms:.4f} plain dkv_ms={plain_dkv_ms:.4f} "
@@ -438,7 +518,7 @@ def check_train_kernels(shapes, device, iters: int = 10):
                              f"lse {lse_err:.2e}")
     results["flash_attention"] = [dict(
         shape=f"B={B},L={L},heads={heads},hd={hd}", path="training", per_step=s["per_step"],
-        ms=fwd_lse_ms, plain_ms=plain_fwd_ms, bound_ms=b_ms, flops=flops, bytes=nbytes,
+        ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=b_ms, flops=flops, bytes=nbytes,
         rel_l2=fwd_err, max_abs_err=fwd_mae, library_ms=lib_fwd_ms)]
     for name, which, ms, plain_ms, err, mae in (
             ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_dkv_ms,
@@ -641,9 +721,13 @@ def profile_step(sampler, batch, index: int = 25):
 
 
 def kernel_group(name: str) -> str:
+    """The profiler's group of a device kernel: the port's kernels by their
+    own symbols, then the kernels of PyTorch's SDPA (its flash
+    `pytorch_flash::...`, memory-efficient `fmha_...` or cuDNN `..._sdpa_...`
+    backends), then the library groups."""
     low = name.lower()
     for key, group in (("depth_ctx_kernel", "K1 depth_attention_ctx"),
-                       ("flash_fwd_kernel", "K2 flash_attention"),
+                       ("md_flash_fwd_kernel", "K2 flash_attention"),
                        ("flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
                        ("flash_bwd_dq_kernel", "K2-dq flash_attention_bwd"),
                        ("depth_attn_kernel", "K3 depth_attention"),
@@ -651,6 +735,8 @@ def kernel_group(name: str) -> str:
                        ("gn_apply_kernel", "K4 group_norm")):
         if key in name:
             return group
+    if any(w in low for w in ("pytorch_flash", "fmha", "sdpa", "attention")):
+        return "SDPA (PyTorch)"
     if any(w in low for w in ("conv", "fprop", "dgrad", "wgrad", "implicit")):
         return "convolution (cuDNN)"
     if any(w in low for w in ("gemm", "nvjet", "matmul", "cublas")):
@@ -659,7 +745,7 @@ def kernel_group(name: str) -> str:
         return "grid_sample"
     if "reduce" in low or "norm" in low:
         return "reductions and norms"
-    if "adam" in low or "foreach" in low:
+    if any(w in low for w in ("adam", "foreach", "multi_tensor_apply")):
         return "optimizer (AdamW)"
     return "elementwise and other"
 
@@ -681,7 +767,7 @@ def profile_report(label: str, step, top: int = 15):
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kern = device_events(prof)
     if not kern:
         raise AssertionError("torch.profiler recorded no device activity")
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3

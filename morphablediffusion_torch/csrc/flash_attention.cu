@@ -1,255 +1,575 @@
-// Flash attention forward for the UNet's 1024-token self-attention.
+// Flash attention forward for the UNet's 1024-token self-attention, on Hopper.
 //
-// Replaces: the Pallas TPU flash-attention kernel called by the JAX
-// package's models/layers.py::attention (:277-297) for self-attention with min(Lq, Lk) >= 1024 (the five ds=1 SpatialTransformers:
-// B=32, 8 heads, head_dim 40, L=1024, bf16).
+// Replaces: the library Pallas TPU kernel
+// jax/experimental/pallas/ops/tpu/flash_attention.py::_flash_attention_kernel
+// (:331), which the JAX package's models/layers.py::attention (:277-297)
+// calls for self-attention with min(Lq, Lk) >= 1024: the five ds=1
+// SpatialTransformers, 8 heads, head_dim 40, L=1024, bf16; B=32 at serving,
+// B=8 in training.
 //
-// What bounds it on the H100: 4*B*H*L^2*hd = 43 GFLOP per call against 84 MB
-// of q/k/v/out, so it is bound by tensor-core operations (~44 us at the
-// published bf16 peak), not by memory. The (L, L) logits are the bytes to
-// keep out of device memory.
+// What bounds it on the H100: 4*B*H*L^2*hd = 43 GFLOP per call at B=32
+// against 84 MB of q/k/v/out, so tensor-core operations: 0.0434 ms at the
+// published bf16 peak. At head_dim 40 the L^2 exponentials of the softmax
+// (268 M per call at B=32, on 16 special-function lanes per SM) cost more
+// than the products, so every per-logit step stays in registers. Measured
+// (chip_smoke.py, H100 SXM at 700 W) it takes ~0.165 ms at B=32, as long
+// as F.scaled_dot_product_attention: what holds it back is each
+// warpgroup's serial chain per key tile (Q K^T, softmax, P V, the next
+// tile's barrier) with only four consumer warpgroups per SM (PERF.md).
 //
-// Design (simple and right first; no wgmma/TMA/pipelining yet):
-//  * one block of 4 warps per (batch*head, 64-query tile); each warp owns 16
-//    query rows for the whole key loop;
-//  * K and V tiles of 64 keys are staged through shared memory and shared by
-//    the 4 warps;
-//  * Q.K^T and P.V run on the tensor cores through WMMA (mma.sync) in bf16
-//    with fp32 accumulation. head_dim 40 is not a multiple of 16, so the
-//    tiles are padded with zero columns to 48 (HDP); the padding adds nothing
-//    to the logits and its output columns are never written;
-//  * online softmax in fp32 (running max and sum per row, log2 domain); the
-//    output accumulator lives in shared memory in fp32 and is rescaled per
-//    key tile; the (L, L) matrix never exists.
-//  * for training, the kernel also writes each row's fp32 logsumexp of the
-//    scaled logits, lse (B, num_heads, L), which the backward kernels
-//    (flash_attention_bwd.cu) read to rebuild P without a second softmax;
-//    serving passes a null pointer and writes nothing more.
-// Layout: q, k, v, out are (B, L, num_heads * head_dim) row-major, the layout
-// the to_q/to_k/to_v projections produce, so no transpose is needed.
+// Design:
+//  * one block per (sample*head, 128 queries): two consumer warpgroups of
+//    64 query rows each and one producer warp; ~66 KB of shared memory, two
+//    blocks per SM;
+//  * the producer warp copies Q once and K, V tiles of 64 keys into a
+//    3-stage ring with TMA (cp.async.bulk.tensor), completed on full/empty
+//    mbarriers. The tensor maps are 4-D {head_dim, heads, L, batch} with a
+//    box {64, 1, rows, 1} and 128-byte swizzle: TMA bounds-checks each
+//    dimension, so columns past head_dim and rows past L arrive as zeros and
+//    no head reads its neighbour's columns;
+//  * S = Q K^T with wgmma m64n64k16, both operands K-major from shared
+//    memory, ceil(head_dim / 16) k-steps (40 pads to 48, not 64); the fp32
+//    S accumulator stays in registers;
+//  * online softmax in registers: a row lives on the 4 threads of a quad (2
+//    shuffles for its max); scale*log2(e) is folded into one FMA before ex2;
+//    the row sum stays per thread until the end; keys >= L are set to -inf
+//    explicitly (a zero-filled key row would give logit 0);
+//  * O += P V with P converted to bf16 in registers as wgmma's A operand
+//    (the m64nNk16 accumulator layout is the A-fragment layout) and V read
+//    as an MN-major (transposed) B operand, N = head_dim; O is rescaled in
+//    registers. No fp32 S, P or O is ever in shared memory;
+//  * epilogue: O / l in bf16, staged in the warpgroup's own Q rows in the
+//    swizzled layout and written by a TMA store, which clips rows >= L and
+//    columns >= head_dim; and each row's fp32 logsumexp of the scaled logits
+//    in natural log, lse (B, heads, L), which flash_attention_bwd.cu reads.
+// Host side: the four tensor maps are encoded per call with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
+// library is not linked against libcuda), and passed as __grid_constant__
+// kernel parameters.
+// Layout: q, k, v, out are (B, L, num_heads * head_dim) row-major, the
+// layout the to_q/to_k/to_v projections produce, so no transpose is needed.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include <cstdint>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
 namespace {
 
-constexpr int BQ = 64;  // queries per block
-constexpr int BK = 64;  // keys per tile
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
+constexpr int BQ = 128;                   // queries per block
+constexpr int BK = 64;                    // keys per tile
+constexpr int STAGES = 3;                 // depth of the K/V ring
+constexpr int NCONSUMER = 256;            // two warpgroups
+constexpr int NTHREADS = NCONSUMER + 32;  // and the producer warp
+constexpr int ROW_BYTES = 128;            // a tile row: 64 bf16, 128-byte swizzle
+constexpr int Q_BYTES = BQ * ROW_BYTES;
+constexpr int KV_BYTES = BK * ROW_BYTES;
+constexpr int Q_OFF = 0;
+constexpr int K_OFF = Q_OFF + Q_BYTES;
+constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;  // q, full[STAGES], empty[STAGES]
+constexpr int SMEM_BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + 1024 B alignment
+constexpr int TENSOR_MAP_ERROR = 100000;  // + the CUresult of a refused tensor map
+constexpr float LN2 = 0.6931471805599453f;
 
-template <int HDP>
-struct Layout {
-  static constexpr int LDH = HDP + 8;  // bf16 stride of the Q/K/V tiles
-  static constexpr int LDS = BK + 4;   // fp32 stride of S (and the P.V stage)
-  static constexpr int LDP = BK + 8;   // bf16 stride of P
-  static constexpr int LDO = HDP + 4;  // fp32 stride of the O accumulator
-  static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + BQ * LDH * 2;
-  static constexpr int V_OFF = K_OFF + BK * LDH * 2;
-  static constexpr int S_OFF = V_OFF + BK * LDH * 2;
-  static constexpr int P_OFF = S_OFF + BQ * LDS * 4;
-  static constexpr int O_OFF = P_OFF + BQ * LDP * 2;
-  static constexpr int M_OFF = O_OFF + BQ * LDO * 4;
-  static constexpr int BYTES = M_OFF + 3 * BQ * 4;
-  static_assert(HDP % 16 == 0 && HDP <= BK, "padded head_dim must be 16..64");
-  static_assert(K_OFF % 32 == 0 && V_OFF % 32 == 0 && S_OFF % 32 == 0 &&
-                    P_OFF % 32 == 0 && O_OFF % 32 == 0,
-                "WMMA tiles need 32-byte aligned shared memory");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box {64, 1, rows, 1} at (column 0, head h, row, sample b) into shared
+// memory at dst, completing on the mbarrier bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// The inverse, from shared memory at src; returns once src may be reused.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int h, int row,
+                                          int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(0), "r"(h), "r"(row), "r"(b)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wgmma descriptor of a tile with 128-byte rows in 128-byte swizzle: start
+// address, leading byte offset (unused by the K-major operands; for V the
+// MN-major atom stride, unused at N <= 64) and stride byte offset (1024 B,
+// the next 8 rows), all in 16-byte units; layout type 1 (128B) in bits 62-63.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accesses to wgmma's registers across the
+// asynchronous product.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S (64 x 64 fp32) += Q (64 x 16) K^T, both from shared memory, K-major;
+// scale_d = 0 overwrites S.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x N fp32) += P (64 x 16, bf16 in registers) V (16 x N), V from
+// shared memory MN-major (transposed); one specialisation per head_dim N.
+template <int N>
+struct WgmmaPV;
+
+template <>
+struct WgmmaPV<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Copy `rows` rows of head_dim bf16 values (16-byte vectors) from a
-// (L, row_stride) slab into a shared tile of stride LDH; rows past L are 0.
-template <int LDH>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0, int rows,
-                                          int L, long row_stride, int head_dim) {
-  const int vecs = head_dim / 8;
-  for (int i = threadIdx.x; i < rows * vecs; i += NTHREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < L) val = *reinterpret_cast<const uint4*>(src + (long)(r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
+template <>
+struct WgmmaPV<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
-}
+};
 
-template <int HDP>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int L, int num_heads, int head_dim,
-                     float scale_log2) {
-  using Lt = Layout<HDP>;
-  constexpr int LDH = Lt::LDH, LDS = Lt::LDS, LDP = Lt::LDP, LDO = Lt::LDO;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + Lt::Q_OFF);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + Lt::K_OFF);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + Lt::V_OFF);
-  float* Ss = reinterpret_cast<float*>(smem + Lt::S_OFF);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + Lt::P_OFF);
-  float* Os = reinterpret_cast<float*>(smem + Lt::O_OFF);
-  float* row_m = reinterpret_cast<float*>(smem + Lt::M_OFF);
-  float* row_l = row_m + BQ;
-  float* row_c = row_l + BQ;
+template <>
+struct WgmmaPV<24> {
+  static __device__ __forceinline__ void mma(float (&d)[12], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+template <>
+struct WgmmaPV<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaPV<40> {
+  static __device__ __forceinline__ void mma(float (&d)[20], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaPV<48> {
+  static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaPV<56> {
+  static __device__ __forceinline__ void mma(float (&d)[28], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, {%28, %29, %30, %31}, %32, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaPV<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+// HD = head_dim (a multiple of 8, at most 64).
+template <int HD>
+__global__ void __launch_bounds__(NTHREADS, HD <= 48 ? 2 : 1)
+    md_flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse, int L,
+                        int num_heads, float scale_log2) {
+  constexpr int KSTEPS = (HD + 15) / 16;  // k16 steps of Q K^T
+  constexpr int NO = HD / 2;              // O accumulator floats per thread
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + BAR_OFF, bar_full = bar_q + 8, bar_empty = bar_full + 8 * STAGES;
+
+  const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
-  const int b = blockIdx.y / num_heads, h = blockIdx.y % num_heads;
-  const long row_stride = (long)num_heads * head_dim;
-  const long base = (long)b * L * row_stride + (long)h * head_dim;
+  const int bh = blockIdx.y, b = bh / num_heads, h = bh % num_heads;
+  const int ntiles = (L + BK - 1) / BK;
 
-  // zero the Q/K/V tiles (their padding columns stay 0) and the accumulators
-  for (int i = tid; i < (BQ + 2 * BK) * LDH; i += NTHREADS) Qs[i] = __float2bfloat16(0.f);
-  for (int i = tid; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
-  for (int i = tid; i < BQ; i += NTHREADS) {
-    row_m[i] = -INFINITY;
-    row_l[i] = 0.f;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, NCONSUMER / 32);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  load_rows<LDH>(Qs, q + base, q0, BQ, L, row_stride, head_dim);
 
-  const int r_own = warp * 16;  // this warp's first query row in the tile
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<LDH>(Ks, k + base, k0, BK, L, row_stride, head_dim);
-    load_rows<LDH>(Vs, v + base, k0, BK, L, row_stride, head_dim);
-    __syncthreads();
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[BK / 16];
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HDP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + r_own * LDH + kk, LDH);
-#pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, Ks + n * 16 * LDH + kk, LDH);
-          wmma::mma_sync(acc[n], a, bt, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n)
-        wmma::store_matrix_sync(Ss + r_own * LDS + n * 16, acc[n], LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this key tile, one row at a time, 2 keys per lane
-    for (int r = 0; r < 16; ++r) {
-      const int row = r_own + r;
-      float s0 = (k0 + lane < L) ? Ss[row * LDS + lane] * scale_log2 : -INFINITY;
-      float s1 = (k0 + lane + 32 < L) ? Ss[row * LDS + lane + 32] * scale_log2 : -INFINITY;
-      const float m_old = row_m[row];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float p0 = exp2f(s0 - m_new), p1 = exp2f(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      Ps[row * LDP + lane] = __float2bfloat16(p0);
-      Ps[row * LDP + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) {
-        const float c = exp2f(m_old - m_new);
-        row_c[row] = c;
-        row_l[row] = row_l[row] * c + sum;
-        row_m[row] = m_new;
+  if (tid >= NCONSUMER) {  // the producer warp: one thread issues every copy
+    if (tid == NCONSUMER) {
+      mbar_expect_tx(bar_q, Q_BYTES);
+      tma_load(base + Q_OFF, &q_map, bar_q, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(bar_empty + 8 * s, ((t / STAGES) - 1) & 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * KV_BYTES);
+        tma_load(base + K_OFF + s * KV_BYTES, &k_map, bar_full + 8 * s, h, t * BK, b);
+        tma_load(base + V_OFF + s * KV_BYTES, &v_map, bar_full + 8 * s, h, t * BK, b);
       }
     }
-    __syncwarp();
-
-    // P V for the warp's rows, staged through its rows of S, then O = O*c + PV
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[HDP / 16];
-#pragma unroll
-      for (int n = 0; n < HDP / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + r_own * LDP + kk, LDP);
-#pragma unroll
-        for (int n = 0; n < HDP / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, Vs + kk * LDH + n * 16, LDH);
-          wmma::mma_sync(acc[n], a, bv, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < HDP / 16; ++n)
-        wmma::store_matrix_sync(Ss + r_own * LDS + n * 16, acc[n], LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * HDP; i += 32) {
-      const int row = r_own + i / HDP, c = i % HDP;
-      Os[row * LDO + c] = Os[row * LDO + c] * row_c[row] + Ss[row * LDS + c];
-    }
+    return;
   }
-  __syncwarp();
 
-  for (int i = lane; i < 16 * head_dim; i += 32) {
-    const int row = r_own + i / head_dim, c = i % head_dim;
-    if (q0 + row < L)
-      out[base + (long)(q0 + row) * row_stride + c] =
-          __float2bfloat16(Os[row * LDO + c] / row_l[row]);
+  // consumers: warpgroup wg owns query rows wg*64 .. wg*64+63 of the block;
+  // this thread holds rows r and r + 8 of them (the wgmma fragment layout),
+  // columns 8j + c2, 8j + c2 + 1 of each 8-column chunk j
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r = warp * 16 + lane / 4, c2 = 2 * (lane % 4);
+  const uint32_t q_tile = base + Q_OFF + wg * 64 * ROW_BYTES;
+  const uint64_t dq = sw128_desc(q_tile, 16);
+
+  float o[NO], sacc[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // log2-scaled max, sum
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+    const uint64_t dk = sw128_desc(base + K_OFF + s * KV_BYTES, 16);
+    const uint64_t dv = sw128_desc(base + V_OFF + s * KV_BYTES, 1024);
+
+    // S = Q K^T: a k16 step is 32 bytes further along the 128-byte rows
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) wgmma_qk(sacc, dq + 2 * kk, dk + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+
+    if ((t + 1) * BK > L) {  // the ragged last tile: keys >= L to -inf
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (t * BK + 8 * (i / 4) + c2 + (i & 1) >= L) sacc[i] = -INFINITY;
+    }
+
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2), mn1 = fmaxf(m1, mx1 * scale_log2);
+    const float corr0 = ex2(m0 - mn0), corr1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // P = exp2(S * scale_log2 - m) in bf16: chunk j = 2kk + half of S is
+    // half of the A fragment of P's k16 step kk (rows r, r + 8)
+    uint32_t pa[4][4];
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float p0 = ex2(fmaf(sacc[4 * j], scale_log2, -mn0));
+      const float p1 = ex2(fmaf(sacc[4 * j + 1], scale_log2, -mn0));
+      const float p2 = ex2(fmaf(sacc[4 * j + 2], scale_log2, -mn1));
+      const float p3 = ex2(fmaf(sacc[4 * j + 3], scale_log2, -mn1));
+      s0 += p0 + p1;
+      s1 += p2 + p3;
+      pa[j / 2][2 * (j % 2)] = pack_bf16(p0, p1);
+      pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p2, p3);
+    }
+    l0 = l0 * corr0 + s0;
+    l1 = l1 * corr1 + s1;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= corr0;
+      o[4 * j + 1] *= corr0;
+      o[4 * j + 2] *= corr1;
+      o[4 * j + 3] *= corr1;
+    }
+
+    // O += P V: a k16 step of V is 16 key rows, 2048 bytes further
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) WgmmaPV<HD>::mma(o, pa[kk], dv + kk * (2048 >> 4));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);  // this warp is done with the stage
   }
-  if (lse != nullptr && lane < 16 && q0 + r_own + lane < L) {
-    // natural-log logsumexp of the scaled logits: (m + log2 l) * ln 2
-    const int row = r_own + lane;
-    lse[(long)blockIdx.y * L + q0 + row] =
-        (row_m[row] + log2f(row_l[row])) * 0.6931471805599453f;
+
+  // epilogue: the quad's partial row sums, O / l in bf16 into this warp's
+  // own rows of the Q tile (their last reader, the final Q K^T, has
+  // completed) in the 128-byte swizzle the tensor map expects, one TMA
+  // store per warpgroup
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  unsigned char* tile = smem + Q_OFF + wg * 64 * ROW_BYTES;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int chunk = (j ^ (r & 7)) * 16 + 2 * c2;  // rows r and r + 8 share r % 8
+    *reinterpret_cast<uint32_t*>(tile + r * ROW_BYTES + chunk) =
+        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(tile + (r + 8) * ROW_BYTES + chunk) =
+        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (wg == 0)  // the warpgroup's 128 threads (named barriers 1 and 2)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+  if (tid % 128 == 0) tma_store(&o_map, q_tile, h, q0 + wg * 64, b);
+
+  if (lane % 4 == 0) {  // natural-log logsumexp of the scaled logits
+    const int row = q0 + wg * 64 + r;
+    float* out_lse = lse + static_cast<long>(bh) * L;
+    if (row < L) out_lse[row] = (m0 + log2f(l0)) * LN2;
+    if (row + 8 < L) out_lse[row + 8] = (m1 + log2f(l1)) * LN2;
   }
 }
 
-template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
-           int L, int num_heads, int head_dim, float scale, cudaStream_t stream) {
-  const int bytes = Layout<HDP>::BYTES;
-  cudaFuncSetAttribute(flash_fwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       bytes);
-  dim3 grid((L + BQ - 1) / BQ, batch * num_heads);
-  flash_fwd_kernel<HDP><<<grid, NTHREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), L, num_heads, head_dim,
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up once through the runtime.
+int encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A (batch, L, num_heads * head_dim) bf16 tensor as the 4-D map {head_dim,
+// num_heads, L, batch}, box {64, 1, rows, 1}, 128-byte swizzle, zero fill.
+int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int L, int num_heads,
+           int head_dim, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
+                              static_cast<cuuint64_t>(num_heads), static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = 2ull * num_heads * head_dim;
+  const cuuint64_t strides[3] = {2ull * head_dim, row, row * L};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUresult res =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+         steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int batch, int L,
+           int num_heads, float scale, cudaStream_t stream) {
+  static bool smem_set = false;
+  EncodeTiled fn;
+  CUtensorMap qm, km, vm, om;
+  int err = encoder(&fn);
+  if (err == 0) err = encode(fn, &qm, q, batch, L, num_heads, HD, BQ);
+  if (err == 0) err = encode(fn, &km, k, batch, L, num_heads, HD, BK);
+  if (err == 0) err = encode(fn, &vm, v, batch, L, num_heads, HD, BK);
+  if (err == 0) err = encode(fn, &om, out, batch, L, num_heads, HD, 64);
+  if (err != 0) return err;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        md_flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set = true;
+  }
+  const dim3 grid((L + BQ - 1) / BQ, batch * num_heads);
+  md_flash_fwd_kernel<HD><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
+      qm, km, vm, om, lse, L, num_heads, scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, out: (batch, L, num_heads * head_dim) bf16, contiguous; lse:
-// (batch, num_heads, L) fp32, or null to skip it. head_dim must be a multiple
-// of 8 and at most 64. Returns cudaGetLastError().
+// q, k, v, out: (batch, L, num_heads * head_dim) bf16, contiguous, 16-byte
+// aligned; lse: (batch, num_heads, L) fp32. head_dim must be a multiple of 8
+// and at most 64; L >= 1. Returns cudaGetLastError(), or TENSOR_MAP_ERROR +
+// the CUresult if a tensor map is refused.
 int md_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                            int batch, int L, int num_heads, int head_dim, float scale,
                            void* stream) {
-  if (head_dim % 8 != 0 || head_dim > 64 || head_dim <= 0) return (int)cudaErrorInvalidValue;
+  if (head_dim % 8 != 0 || head_dim > 64 || head_dim <= 0 || L < 1 || batch < 1 ||
+      num_heads < 1 || lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((head_dim + 15) / 16) {
-    case 1: return launch<16>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
-    case 2: return launch<32>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
-    case 3: return launch<48>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
-    default: return launch<64>(q, k, v, out, lse, batch, L, num_heads, head_dim, scale, s);
+  float* l = static_cast<float*>(lse);
+  switch (head_dim) {
+    case 8: return launch<8>(q, k, v, out, l, batch, L, num_heads, scale, s);
+    case 16: return launch<16>(q, k, v, out, l, batch, L, num_heads, scale, s);
+    case 24: return launch<24>(q, k, v, out, l, batch, L, num_heads, scale, s);
+    case 32: return launch<32>(q, k, v, out, l, batch, L, num_heads, scale, s);
+    case 40: return launch<40>(q, k, v, out, l, batch, L, num_heads, scale, s);
+    case 48: return launch<48>(q, k, v, out, l, batch, L, num_heads, scale, s);
+    case 56: return launch<56>(q, k, v, out, l, batch, L, num_heads, scale, s);
+    default: return launch<64>(q, k, v, out, l, batch, L, num_heads, scale, s);
   }
 }
 
+// Dynamic shared memory of a block of md_flash_fwd_kernel, in bytes.
+int md_flash_attention_fwd_smem_bytes(void) { return SMEM_BYTES; }
+
+// Blocks of md_flash_fwd_kernel<40> that fit on one SM, once a head_dim 40
+// launch has raised its shared-memory limit.
+int md_flash_attention_fwd_blocks_per_sm(void) {
+  int n = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, md_flash_fwd_kernel<40>, NTHREADS,
+                                                SMEM_BYTES);
+  return n;
+}
+
 const char* md_cuda_error_string(int code) {
+  if (code >= TENSOR_MAP_ERROR) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -5,17 +5,18 @@ Counterpart of the Pallas TPU flash-attention call in the JAX package's
 self-attention of the five ds=1 SpatialTransformers (head_dim 40, 8 heads;
 B=32 at serving, B=8 in training), and of that library's custom VJP, whose
 two backward kernels (dK/dV over key tiles, dQ over query tiles) run in
-training. The kernels are `csrc/flash_attention.cu` (forward, optionally
-writing each row's logsumexp) and `csrc/flash_attention_bwd.cu` (K2-dkv and
-K2-dq).
+training. The kernels are `csrc/flash_attention.cu` (forward: wgmma, TMA
+and a register-resident online softmax; it always writes each row's
+logsumexp) and `csrc/flash_attention_bwd.cu` (K2-dkv and K2-dq, which read
+that logsumexp).
 
 Layout: q, k, v (B, L, num_heads * head_dim), the layout the to_q/to_k/to_v
 projections produce; the output has the same shape.
 
 `flash_attention` takes the plain version for a tensor on the CPU. For a
-CUDA tensor it launches the kernels or raises: through `_FlashAttention`
-(forward kernel with the row statistics, backward kernels) when a gradient
-is wanted, else the forward kernel alone.
+CUDA tensor it launches the kernels or raises, always through
+`_FlashAttention`: the forward kernel (with the row logsumexp), and the
+backward kernels when a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -82,18 +83,18 @@ def _check(q, k, v, num_heads: int) -> int:
     if hd % 8 or hd > 64:
         raise ValueError(f"flash_attention: head_dim {hd} is not a multiple "
                          "of 8 up to 64")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be 16-byte aligned (TMA)")
     return hd
 
 
-def _forward(q, k, v, num_heads: int, with_lse: bool):
-    """Launch the forward kernel; returns (out, lse or None)."""
+def _forward(q, k, v, num_heads: int):
+    """Launch the forward kernel; returns (out, lse), lse (B, H, L) fp32."""
     hd = _check(q, k, v, num_heads)
     B, L, _ = q.shape
     out = torch.empty_like(q)
-    lse = (torch.empty((B, num_heads, L), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    KERNEL.launch(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out),
-                  None if lse is None else _cuda.ptr(lse),
+    lse = torch.empty((B, num_heads, L), dtype=torch.float32, device=q.device)
+    KERNEL.launch(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out), _cuda.ptr(lse),
                   B, L, num_heads, hd, hd**-0.5, _cuda.stream_of(q))
     return out, lse
 
@@ -138,7 +139,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads: int):
-        out, lse = _forward(q, k, v, num_heads, with_lse=True)
+        out, lse = _forward(q, k, v, num_heads)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.num_heads = num_heads
         return out
@@ -159,6 +160,4 @@ def flash_attention(q, k, v, num_heads: int):
     """
     if not q.is_cuda:
         return attention_reference(q, k, v, num_heads)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, num_heads)
-    return _forward(q, k, v, num_heads, with_lse=False)[0]
+    return _FlashAttention.apply(q, k, v, num_heads)

@@ -87,20 +87,58 @@ def test_depth_attention_ctx_kernel_is_the_fused_chain(dev):
     assert _rel(out, da._reference(f(q), k, v, heads)) <= REL_L2
 
 
-@pytest.mark.parametrize("B,L,heads,hd", [
-    (2, 1024, 8, 40),  # the main path's head_dim, padded to 48 inside
-    (1, 1000, 2, 64),  # ragged last tile
-    (3, 64, 4, 16),
-    (1, 200, 3, 8),
+@pytest.mark.parametrize("B,L,heads,hd,logit_scale", [
+    (2, 1024, 8, 40, 1.0),   # the main path's head_dim, padded to 48 in Q K^T
+    (1, 1000, 2, 64, 1.0),   # ragged last tile
+    (3, 64, 4, 16, 1.0),
+    (1, 200, 3, 8, 1.0),
+    (32, 1024, 8, 40, 1.0),  # the serving shape
+    (2, 1024, 8, 40, 8.0),   # q and k scaled by 8: large logits, the running max moves
+    (3, 1, 2, 40, 1.0),      # L = 1: one partial tile of one key
+    (2, 65, 4, 40, 1.0),     # a last key tile of one key
+    (2, 300, 4, 48, 1.0),    # head_dim 48: three k-steps, no padding
 ])
-def test_flash_attention_kernel(dev, B, L, heads, hd):
+def test_flash_attention_kernel(dev, B, L, heads, hd, logit_scale):
+    """One launch per call with and without a gradient, the output within
+    REL_L2 of the plain version and the row logsumexp within 1e-4."""
     g = torch.Generator(dev).manual_seed(2)
-    q, k, v = (_randn(g, B, L, heads * hd) for _ in range(3))
-    before = fa.KERNEL.launches
+    q, k = (_randn(g, B, L, heads * hd, std=logit_scale) for _ in range(2))
+    v = _randn(g, B, L, heads * hd)
+    want = fa.attention_reference(q, k, v, heads)
+    for grad in (False, True):
+        leaves = [t.detach().requires_grad_(grad) for t in (q, k, v)]
+        before = fa.KERNEL.launches
+        with torch.set_grad_enabled(grad):
+            out = fa.flash_attention(*leaves, heads)
+        torch.cuda.synchronize()
+        assert fa.KERNEL.launches == before + 1
+        assert (out.grad_fn is not None) == grad
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert _rel(out, want) <= REL_L2
+    out2, lse = fa._forward(q, k, v, heads)
+    assert torch.equal(out2, out.detach())
+    assert lse.shape == (B, heads, L) and lse.dtype == torch.float32
+    assert _rel(lse, fa.logsumexp_reference(q, k, heads)) <= 1e-4
+
+
+def test_flash_attention_reads_nothing_past_its_tensors(dev):
+    """q, k, v at the start of buffers whose tail is NaN, at a ragged L and
+    head_dim 40: the TMA boxes (64 columns, 128 or 64 rows) reach past the
+    last head's columns and the last sample's rows, and must see zeros
+    there, not the next bytes in memory."""
+    g = torch.Generator(dev).manual_seed(8)
+    B, L, heads, hd = 2, 65, 4, 40
+    n = B * L * heads * hd
+
+    def padded():
+        buf = torch.full((n + 64 * heads * hd,), float("nan"), device=dev, dtype=torch.bfloat16)
+        buf[:n] = _randn(g, n)
+        return buf[:n].view(B, L, heads * hd)
+
+    q, k, v = padded(), padded(), padded()
     out = fa.flash_attention(q, k, v, heads)
     torch.cuda.synchronize()
-    assert fa.KERNEL.launches == before + 1
-    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
     assert _rel(out, fa.attention_reference(q, k, v, heads)) <= REL_L2
 
 
@@ -132,7 +170,7 @@ def test_flash_attention_backward_kernels(dev, B, L, heads, hd):
     forward's row logsumexp against the plain one."""
     g = torch.Generator(dev).manual_seed(5)
     q, k, v, dout = (_randn(g, B, L, heads * hd) for _ in range(4))
-    out, lse = fa._forward(q, k, v, heads, with_lse=True)
+    out, lse = fa._forward(q, k, v, heads)
     assert _rel(lse, fa.logsumexp_reference(q, k, heads)) <= 1e-4
     n_dkv, n_dq = fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches
     dq, dk, dv = fa.flash_attention_backward(q, k, v, out, lse, dout, heads)
@@ -226,6 +264,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fa.flash_attention(q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1), 2)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention(q, k, v, 8)  # head_dim 10
+    shifted = torch.empty(q.numel() + 4, device=dev, dtype=q.dtype)[4:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(shifted, k, v, 2)  # 8 bytes off: no tensor map
     args = list(_ctx_args(dev, 2, 4, 6, 32, 64, 4))
     args[1] = args[1].transpose(3, 4)
     with pytest.raises(ValueError, match="contiguous"):

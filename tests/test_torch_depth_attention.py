@@ -92,12 +92,17 @@ def test_depth_attention_reference(rng):
                  1e-5)
 
 
-@pytest.mark.parametrize("B,L,heads,hd", [(1, 1024, 2, 8), (2, 64, 3, 16)])
-def test_flash_plain_matches_jax_attention(rng, B, L, heads, hd):
+@pytest.mark.parametrize("B,L,heads,hd,logit_scale", [
+    (1, 1024, 2, 8, 1.0), (2, 64, 3, 16, 1.0), (1, 1000, 2, 8, 1.0), (2, 200, 2, 64, 1.0),
+    (1, 1024, 2, 8, 8.0)],
+    ids=["1-1024-2-8", "2-64-3-16", "ragged-1000", "hd64", "large-logits"])
+def test_flash_plain_matches_jax_attention(rng, B, L, heads, hd, logit_scale):
     """L=1024 is where both packages dispatch to flash; L=64 compares the
-    plain version off that path."""
-    f = lambda: rng.normal(size=(B, L, heads * hd)).astype(np.float32)
-    q, k, v = f(), f(), f()
+    plain version off that path. The cases the card tests hold the kernel
+    to (a ragged L, head_dim 64, q and k scaled by 8 for large logits) hold
+    its yardstick, the plain version, to the JAX package's attention."""
+    f = lambda s=1.0: (rng.normal(size=(B, L, heads * hd)) * s).astype(np.float32)
+    q, k, v = f(logit_scale), f(logit_scale), f()
     ref = j_layers.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads)
     assert_close(t_fa.flash_attention(tt(q), tt(k), tt(v), heads), ref, 1e-5)
     assert_close(t_layers.attention(tt(q), tt(k), tt(v), heads), ref, 1e-5)
