@@ -18,9 +18,12 @@ Phases (any failure exits non-zero):
      `library_ms` (the port never calls it), F.scaled_dot_product_attention
      for flash attention and depth attention, and its backward for the
      flash backward kernels (K2-dkv and K2-dq against the plain version's
-     autograd gradients). K2 and SDPA are also timed on the device alone
-     (torch.profiler), and K2's registers, shared memory and spill bytes
-     are read from its `-Xptxas -v` build log (any spill fails). K4 (GroupNorm)
+     autograd gradients and against their own plain versions,
+     `backward_dkv_reference` and `backward_dq_reference`). K2, K2-dkv,
+     K2-dq, SDPA and its backward are also timed on the device alone
+     (torch.profiler), and the three K2 kernels' registers, shared memory
+     and spill bytes are read from their `-Xptxas -v` build log (any spill
+     fails). K4 (GroupNorm)
      is held the same way at every GroupNorm call that the censuses of
      phases 3, 6 and 7 find, after phase 7 (its yardstick: F.group_norm and
      the activation);
@@ -244,20 +247,31 @@ def ptxas_resources(kernel, symbol: str):
     return res
 
 
-def k2_resources():
-    """K2's forward at head_dim 40: the ptxas resources, and the dynamic
-    shared memory of a block as the library reports it. Raises if ptxas
-    reports spills."""
+# K2's three kernels at head_dim 40: device symbol (mangled) by name
+K2_SYMBOLS = {"forward": "md_flash_fwd_kernelILi40E", "dkv": "md_flash_bwd_dkv_kernelILi40E",
+              "dq": "md_flash_bwd_dq_kernelILi40E"}
+
+
+def k2_resources(which: str = "forward"):
+    """K2's forward, K2-dkv or K2-dq at head_dim 40: the ptxas resources,
+    and the dynamic shared memory of a block and the blocks per SM as the
+    library reports them. Raises if ptxas reports spills."""
     from morphablediffusion_torch.ops import flash_attention as fa
 
-    res = ptxas_resources(fa.KERNEL, "md_flash_fwd_kernelILi40E")
-    lib = ctypes.CDLL(str(fa.KERNEL.lib_path()))
-    smem, blocks = lib.md_flash_attention_fwd_smem_bytes(), lib.md_flash_attention_fwd_blocks_per_sm()
+    kernel = fa.KERNEL if which == "forward" else fa.BWD_DKV_KERNEL  # dkv and dq: one library
+    res = ptxas_resources(kernel, K2_SYMBOLS[which])
+    lib = ctypes.CDLL(str(kernel.lib_path()))
+    if which == "forward":
+        smem, blocks = lib.md_flash_attention_fwd_smem_bytes(), lib.md_flash_attention_fwd_blocks_per_sm()
+    else:
+        dkv = int(which == "dkv")
+        smem = lib.md_flash_attention_bwd_smem_bytes(dkv)
+        blocks = lib.md_flash_attention_bwd_blocks_per_sm(dkv)
     if res is None:
         return (f"dynamic smem {smem} B, {blocks} blocks per SM; ptxas resources not in this "
                 "process's build log")
     if res["spill_stores"] or res["spill_loads"]:
-        raise AssertionError(f"K2 forward spills: {res}")
+        raise AssertionError(f"K2 {which} spills: {res}")
     return (f"{res['registers']} registers, dynamic smem {smem} B (static {res['static_smem']} B), "
             f"{blocks} blocks per SM, spill stores {res['spill_stores']} B, spill loads "
             f"{res['spill_loads']} B")
@@ -480,8 +494,15 @@ def check_train_kernels(shapes, device, iters: int = 10):
             for n, a, b in (("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2]))}
     lse_err = rel_l2(lse, fa.logsumexp_reference(q, k, heads))
     with torch.no_grad():
+        own = (fa.backward_dq_reference(q, k, v, dout, lse, di, heads),
+               *fa.backward_dkv_reference(q, k, v, dout, lse, di, heads))
+    own_errs = {n: rel_l2(a, b) for n, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), own)}
+    del own
+    with torch.no_grad():
         dkv_ms = cuda_ms(lambda: fa.backward_dkv(q, k, v, dout, lse, di, heads), iters)
         dq_ms = cuda_ms(lambda: fa.backward_dq(q, k, v, dout, lse, di, heads), iters)
+        dkv_dev_ms, _ = device_ms(lambda: fa.backward_dkv(q, k, v, dout, lse, di, heads))
+        dq_dev_ms, _ = device_ms(lambda: fa.backward_dq(q, k, v, dout, lse, di, heads))
         fwd_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, heads), iters)
         fwd_dev_ms, _ = device_ms(lambda: fa.flash_attention(q, k, v, heads))
         plain_fwd_ms = cuda_ms(lambda: fa.attention_reference(q, k, v, heads), max(2, iters // 4))
@@ -497,8 +518,9 @@ def check_train_kernels(shapes, device, iters: int = 10):
         lib_fwd_dev_ms, _ = device_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     lib_out = F.scaled_dot_product_attention(qh, kh, vh)
     douth = dout.reshape(B, L, heads, hd).transpose(1, 2).contiguous()
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(lib_out, (qh, kh, vh), douth,
-                                                 retain_graph=True), iters)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, (qh, kh, vh), douth, retain_graph=True)
+    lib_ms = cuda_ms(lib_bwd, iters)
+    lib_dev_ms, lib_names = device_ms(lib_bwd)
     flops, nbytes = k2_cost(s)
     b_ms, b_by = bound_ms(flops, nbytes)
     log(f"K2 flash_attention (training) B={B} L={L} heads={heads} hd={hd}: rel_l2="
@@ -507,32 +529,38 @@ def check_train_kernels(shapes, device, iters: int = 10):
         f"bound_ms={b_ms:.5f} ({b_by}), {b_ms / fwd_ms:.1%} of the bound (device "
         f"{b_ms / fwd_dev_ms:.1%}) x{s['per_step']}/step")
     log(f"  K2 forward resources: {k2_resources()}")
-    log(f"K2 backward B={B} L={L} heads={heads} hd={hd}: rel_l2 dq={errs['dq']:.3e} "
-        f"dk={errs['dk']:.3e} dv={errs['dv']:.3e}; lse rel_l2={lse_err:.2e}; "
-        f"dkv_ms={dkv_ms:.4f} dq_ms={dq_ms:.4f} plain dkv_ms={plain_dkv_ms:.4f} "
-        f"plain dq_ms={plain_dq_ms:.4f} sdpa_backward_ms={lib_ms:.4f} "
+    log(f"K2 backward B={B} L={L} heads={heads} hd={hd}: rel_l2 vs autograd of the plain "
+        f"version dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}, vs the "
+        f"kernels' plain versions dq={own_errs['dq']:.3e} dk={own_errs['dk']:.3e} "
+        f"dv={own_errs['dv']:.3e}; lse rel_l2={lse_err:.2e}; dkv_ms={dkv_ms:.4f} (device "
+        f"{dkv_dev_ms:.4f}) dq_ms={dq_ms:.4f} (device {dq_dev_ms:.4f}) plain "
+        f"dkv_ms={plain_dkv_ms:.4f} plain dq_ms={plain_dq_ms:.4f} "
+        f"sdpa_backward_ms={lib_ms:.4f} (device {lib_dev_ms:.4f}, its kernels {lib_names}) "
         f"x{s['bwd_per_step']}/step")
+    for which in ("dkv", "dq"):
+        log(f"  K2-{which} resources: {k2_resources(which)}")
     if not (fwd_err <= REL_L2_KERNEL and max(errs.values()) <= REL_L2_KERNEL
-            and lse_err <= 1e-4):
-        raise AssertionError(f"K2 at B={B}: forward rel L2 {fwd_err:.3e}, backward {errs}, "
-                             f"lse {lse_err:.2e}")
+            and max(own_errs.values()) <= REL_L2_KERNEL and lse_err <= 1e-4):
+        raise AssertionError(f"K2 at B={B}: forward rel L2 {fwd_err:.3e}, backward {errs} "
+                             f"(vs own plain versions {own_errs}), lse {lse_err:.2e}")
     results["flash_attention"] = [dict(
         shape=f"B={B},L={L},heads={heads},hd={hd}", path="training", per_step=s["per_step"],
         ms=fwd_ms, plain_ms=plain_fwd_ms, bound_ms=b_ms, flops=flops, bytes=nbytes,
         rel_l2=fwd_err, max_abs_err=fwd_mae, library_ms=lib_fwd_ms)]
-    for name, which, ms, plain_ms, err, mae in (
-            ("flash_attention_bwd_dkv", "dkv", dkv_ms, plain_dkv_ms,
+    for name, which, ms, dev, plain_ms, err, mae in (
+            ("flash_attention_bwd_dkv", "dkv", dkv_ms, dkv_dev_ms, plain_dkv_ms,
              max(errs["dk"], errs["dv"]), max(maes["dk"], maes["dv"])),
-            ("flash_attention_bwd_dq", "dq", dq_ms, plain_dq_ms, errs["dq"], maes["dq"])):
+            ("flash_attention_bwd_dq", "dq", dq_ms, dq_dev_ms, plain_dq_ms, errs["dq"],
+             maes["dq"])):
         flops, nbytes = k2_bwd_cost(s, which)
         b_ms, b_by = bound_ms(flops, nbytes)
         log(f"  {name}: bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
-            f"{nbytes / 1e6:.2f} MB)")
+            f"{nbytes / 1e6:.2f} MB), {b_ms / ms:.1%} of the bound (device {b_ms / dev:.1%})")
         results[name] = [dict(shape=f"B={B},L={L},heads={heads},hd={hd}", path="training",
-                              per_step=s["bwd_per_step"], ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms,
+                              per_step=s["bwd_per_step"], ms=ms, device_ms=dev,
+                              plain_ms=plain_ms, bound_ms=b_ms,
                               flops=flops, bytes=nbytes, rel_l2=err, max_abs_err=mae,
-                              library_ms=lib_ms)]
+                              library_ms=lib_ms, library_device_ms=lib_dev_ms)]
     return results
 
 
@@ -728,8 +756,8 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     for key, group in (("depth_ctx_kernel", "K1 depth_attention_ctx"),
                        ("md_flash_fwd_kernel", "K2 flash_attention"),
-                       ("flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
-                       ("flash_bwd_dq_kernel", "K2-dq flash_attention_bwd"),
+                       ("md_flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
+                       ("md_flash_bwd_dq_kernel", "K2-dq flash_attention_bwd"),
                        ("depth_attn_kernel", "K3 depth_attention"),
                        ("gn_stats_kernel", "K4 group_norm"),
                        ("gn_apply_kernel", "K4 group_norm")):
@@ -1075,7 +1103,11 @@ def main() -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
         regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
-        log(f"  {k.name}: nvcc {k.build_seconds:.2f} s; {regs}")
+        # ptxas's notes that it serialized wgmma (C7512, C7514), if any
+        serialized = sum("wgmma.mma_async instructions are serialized" in ln
+                         for ln in k.build_log.splitlines())
+        log(f"  {k.name}: nvcc {k.build_seconds:.2f} s; {serialized} serialized-wgmma notes; "
+            f"{regs}")
 
     cfg = Config()
     k1_shapes, k2_shape = main_path_shapes(cfg)

@@ -45,16 +45,15 @@
 // Host side: the four tensor maps are encoded per call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint (the
 // library is not linked against libcuda), and passed as __grid_constant__
-// kernel parameters.
+// kernel parameters; the shared-memory limit is raised once per device.
+// The TMA, mbarrier and wgmma helpers are flash_common.cuh, which the
+// backward kernels share.
 // Layout: q, k, v, out are (B, L, num_heads * head_dim) row-major, the
 // layout the to_q/to_k/to_v projections produce, so no transpose is needed.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
-#include <cstdint>
+#include "flash_common.cuh"
 
 namespace {
 
@@ -63,7 +62,6 @@ constexpr int BK = 64;                    // keys per tile
 constexpr int STAGES = 3;                 // depth of the K/V ring
 constexpr int NCONSUMER = 256;            // two warpgroups
 constexpr int NTHREADS = NCONSUMER + 32;  // and the producer warp
-constexpr int ROW_BYTES = 128;            // a tile row: 64 bf16, 128-byte swizzle
 constexpr int Q_BYTES = BQ * ROW_BYTES;
 constexpr int KV_BYTES = BK * ROW_BYTES;
 constexpr int Q_OFF = 0;
@@ -71,227 +69,7 @@ constexpr int K_OFF = Q_OFF + Q_BYTES;
 constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
 constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;  // q, full[STAGES], empty[STAGES]
 constexpr int SMEM_BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + 1024 B alignment
-constexpr int TENSOR_MAP_ERROR = 100000;  // + the CUresult of a refused tensor map
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// One box {64, 1, rows, 1} at (column 0, head h, row, sample b) into shared
-// memory at dst, completing on the mbarrier bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int h, int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
-
-// The inverse, from shared memory at src; returns once src may be reused.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int h, int row,
-                                          int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
-          "l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(0), "r"(h), "r"(row), "r"(b)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// wgmma descriptor of a tile with 128-byte rows in 128-byte swizzle: start
-// address, leading byte offset (unused by the K-major operands; for V the
-// MN-major atom stride, unused at N <= 64) and stride byte offset (1024 B,
-// the next 8 rows), all in 16-byte units; layout type 1 (128B) in bits 62-63.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving accesses to wgmma's registers across the
-// asynchronous product.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// S (64 x 64 fp32) += Q (64 x 16) K^T, both from shared memory, K-major;
-// scale_d = 0 overwrites S.
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O (64 x N fp32) += P (64 x 16, bf16 in registers) V (16 x N), V from
-// shared memory MN-major (transposed); one specialisation per head_dim N.
-template <int N>
-struct WgmmaPV;
-
-template <>
-struct WgmmaPV<8> {
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPV<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPV<24> {
-  static __device__ __forceinline__ void mma(float (&d)[12], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPV<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPV<40> {
-  static __device__ __forceinline__ void mma(float (&d)[20], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPV<48> {
-  static __device__ __forceinline__ void mma(float (&d)[24], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPV<56> {
-  static __device__ __forceinline__ void mma(float (&d)[28], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, {%28, %29, %30, %31}, %32, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaPV<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
 
 // HD = head_dim (a multiple of 8, at most 64).
 template <int HD>
@@ -303,11 +81,8 @@ __global__ void __launch_bounds__(NTHREADS, HD <= 48 ? 2 : 1)
                         int num_heads, float scale_log2) {
   constexpr int KSTEPS = (HD + 15) / 16;  // k16 steps of Q K^T
   constexpr int NO = HD / 2;              // O accumulator floats per thread
-  extern __shared__ unsigned char smem_raw[];
-  // 128-byte swizzle repeats every 1024 bytes: align the tiles to it
-  const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* smem = smem_raw + (base - raw);
+  unsigned char* smem;
+  const uint32_t base = aligned_smem(smem);
   const uint32_t bar_q = base + BAR_OFF, bar_full = bar_q + 8, bar_empty = bar_full + 8 * STAGES;
 
   const int tid = threadIdx.x;
@@ -366,7 +141,7 @@ __global__ void __launch_bounds__(NTHREADS, HD <= 48 ? 2 : 1)
     fence_regs(sacc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) wgmma_qk(sacc, dq + 2 * kk, dk + 2 * kk, kk);
+    for (int kk = 0; kk < KSTEPS; ++kk) wgmma_ss64(sacc, dq + 2 * kk, dk + 2 * kk, kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sacc);
@@ -422,7 +197,7 @@ __global__ void __launch_bounds__(NTHREADS, HD <= 48 ? 2 : 1)
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) WgmmaPV<HD>::mma(o, pa[kk], dv + kk * (2048 >> 4));
+    for (int kk = 0; kk < BK / 16; ++kk) WgmmaRS<HD>::mma(o, pa[kk], dv + kk * (2048 >> 4));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -440,20 +215,9 @@ __global__ void __launch_bounds__(NTHREADS, HD <= 48 ? 2 : 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, x);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  unsigned char* tile = smem + Q_OFF + wg * 64 * ROW_BYTES;
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    const int chunk = (j ^ (r & 7)) * 16 + 2 * c2;  // rows r and r + 8 share r % 8
-    *reinterpret_cast<uint32_t*>(tile + r * ROW_BYTES + chunk) =
-        pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(tile + (r + 8) * ROW_BYTES + chunk) =
-        pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-  }
+  stage_rows<HD>(smem + Q_OFF + wg * 64 * ROW_BYTES, o, r, c2, inv0, inv1);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  if (wg == 0)  // the warpgroup's 128 threads (named barriers 1 and 2)
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
-  else
-    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+  warpgroup_sync(wg);
   if (tid % 128 == 0) tma_store(&o_map, q_tile, h, q0 + wg * 64, b);
 
   if (lane % 4 == 0) {  // natural-log logsumexp of the scaled logits
@@ -464,50 +228,10 @@ __global__ void __launch_bounds__(NTHREADS, HD <= 48 ? 2 : 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up once through the runtime.
-int encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || p == nullptr)
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// A (batch, L, num_heads * head_dim) bf16 tensor as the 4-D map {head_dim,
-// num_heads, L, batch}, box {64, 1, rows, 1}, 128-byte swizzle, zero fill.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int L, int num_heads,
-           int head_dim, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(head_dim),
-                              static_cast<cuuint64_t>(num_heads), static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row = 2ull * num_heads * head_dim;
-  const cuuint64_t strides[3] = {2ull * head_dim, row, row * L};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t steps[4] = {1, 1, 1, 1};
-  const CUresult res =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-         steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
-}
-
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out, float* lse, int batch, int L,
            int num_heads, float scale, cudaStream_t stream) {
-  static bool smem_set = false;
+  static bool smem_set[MAX_DEVICES] = {};
   EncodeTiled fn;
   CUtensorMap qm, km, vm, om;
   int err = encoder(&fn);
@@ -515,16 +239,12 @@ int launch(const void* q, const void* k, const void* v, void* out, float* lse, i
   if (err == 0) err = encode(fn, &km, k, batch, L, num_heads, HD, BK);
   if (err == 0) err = encode(fn, &vm, v, batch, L, num_heads, HD, BK);
   if (err == 0) err = encode(fn, &om, out, batch, L, num_heads, HD, 64);
+  if (err == 0)
+    err = allow_smem(reinterpret_cast<const void*>(md_flash_fwd_kernel<HD>), SMEM_BYTES, smem_set);
   if (err != 0) return err;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        md_flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
-  }
   const dim3 grid((L + BQ - 1) / BQ, batch * num_heads);
   md_flash_fwd_kernel<HD><<<grid, NTHREADS, SMEM_BYTES, stream>>>(
-      qm, km, vm, om, lse, L, num_heads, scale * 1.4426950408889634f);
+      qm, km, vm, om, lse, L, num_heads, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 

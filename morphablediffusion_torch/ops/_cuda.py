@@ -4,9 +4,10 @@ Each kernel source under `morphablediffusion_torch/csrc/` is compiled with
 `nvcc` for Hopper (`sm_90a`) into its own shared library with a plain C
 interface, at first use, into `build/torch_kernels/` at the repository root,
 and loaded with `ctypes`. A source may hold several entry points (one
-`CudaKernel` each, each with its own launch count); it is built once. Library names carry a hash of the source and the
-flags, so an edited source is rebuilt. Nothing is compiled or loaded when a
-module is imported: the CPU tests import every module.
+`CudaKernel` each, each with its own launch count); it is built once.
+Library names carry a hash of the source, the headers beside it and the
+flags, so an edited source or header is rebuilt. Nothing is compiled or
+loaded when a module is imported: the CPU tests import every module.
 
 Every C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `CudaKernel.launch` raises on a non-zero code and
@@ -61,7 +62,13 @@ class CudaKernel:
         self._err = None
 
     def lib_path(self) -> Path:
+        """The library's path, named by a hash of the source, of every
+        header (`*.cuh`) beside it, which a source may include, and of the
+        flags: an edit to any of them leads to a new build."""
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode())
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}_{h.hexdigest()[:16]}.so"
 

@@ -7,8 +7,8 @@ B=32 at serving, B=8 in training), and of that library's custom VJP, whose
 two backward kernels (dK/dV over key tiles, dQ over query tiles) run in
 training. The kernels are `csrc/flash_attention.cu` (forward: wgmma, TMA
 and a register-resident online softmax; it always writes each row's
-logsumexp) and `csrc/flash_attention_bwd.cu` (K2-dkv and K2-dq, which read
-that logsumexp).
+logsumexp) and `csrc/flash_attention_bwd.cu` (K2-dkv and K2-dq on the same
+machinery, `csrc/flash_common.cuh`, which read that logsumexp).
 
 Layout: q, k, v (B, L, num_heads * head_dim), the layout the to_q/to_k/to_v
 projections produce; the output has the same shape.
@@ -73,6 +73,41 @@ def row_dot(out, dout, num_heads: int):
     return prod.reshape(B, L, num_heads, inner // num_heads).sum(-1).transpose(1, 2).contiguous()
 
 
+def _bwd_terms(q, k, v, dout, lse, di, num_heads: int):
+    """The backward kernels' per-head operands and their P and dZ, fp32, by
+    the kernels' own formulas: P = exp(scale q k^T - lse), dZ = P (dO v^T -
+    di). Returns (q, k, dout, P, dZ, scale), heads split out."""
+    B, L, inner = q.shape
+    hd = inner // num_heads
+    qh, kh, vh, doh = (t.reshape(B, -1, num_heads, hd).transpose(1, 2).float()
+                       for t in (q, k, v, dout))
+    scale = hd**-0.5
+    p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale - lse.float()[..., None])
+    dz = p * (torch.matmul(doh, vh.transpose(-1, -2)) - di.float()[..., None])
+    return qh, kh, doh, p, dz, scale
+
+
+def _merge_heads(t):
+    B, H, L, hd = t.shape
+    return t.transpose(1, 2).reshape(B, L, H * hd)
+
+
+def backward_dkv_reference(q, k, v, dout, lse, di, num_heads: int):
+    """Plain version of the K2-dkv kernel's function: (dk, dv) in fp32 from
+    the row statistics lse and di as the kernel reads them. The tests and
+    chip_smoke.py hold the kernel to it; the port never calls it."""
+    qh, _, doh, p, dz, scale = _bwd_terms(q, k, v, dout, lse, di, num_heads)
+    return (_merge_heads(torch.matmul(dz.transpose(-1, -2), qh) * scale),
+            _merge_heads(torch.matmul(p.transpose(-1, -2), doh)))
+
+
+def backward_dq_reference(q, k, v, dout, lse, di, num_heads: int):
+    """Plain version of the K2-dq kernel's function: dq in fp32, as
+    `backward_dkv_reference`."""
+    _, kh, _, _, dz, scale = _bwd_terms(q, k, v, dout, lse, di, num_heads)
+    return _merge_heads(torch.matmul(dz, kh) * scale)
+
+
 def _check(q, k, v, num_heads: int) -> int:
     _cuda.check_cuda("flash_attention", torch.bfloat16, q, k, v)
     B, L, inner = q.shape
@@ -83,9 +118,13 @@ def _check(q, k, v, num_heads: int) -> int:
     if hd % 8 or hd > 64:
         raise ValueError(f"flash_attention: head_dim {hd} is not a multiple "
                          "of 8 up to 64")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: tensors must be 16-byte aligned (TMA)")
+    _check_aligned("flash_attention", q, k, v)
     return hd
+
+
+def _check_aligned(name: str, *tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned (TMA)")
 
 
 def _forward(q, k, v, num_heads: int):
@@ -99,12 +138,22 @@ def _forward(q, k, v, num_heads: int):
     return out, lse
 
 
+def _bwd_check(q, k, v, dout, lse, di, num_heads: int) -> int:
+    hd = _check(q, k, v, num_heads)
+    _cuda.check_cuda("flash_attention_backward", torch.bfloat16, q, dout)
+    _cuda.check_cuda("flash_attention_backward", torch.float32, lse, di, device=q.device)
+    B, L, _ = q.shape
+    if dout.shape != q.shape or lse.shape != (B, num_heads, L) or di.shape != lse.shape:
+        raise ValueError(f"flash_attention_backward: dout {dout.shape}, lse {lse.shape}, "
+                         f"di {di.shape} for q {q.shape} and {num_heads} heads")
+    _check_aligned("flash_attention_backward", dout)
+    return hd
+
+
 def backward_dkv(q, k, v, dout, lse, di, num_heads: int):
     """The K2-dkv kernel: (dk, dv). q, k, v, dout bf16; lse, di (B, H, L)
     fp32; all contiguous on one card."""
-    hd = _check(q, k, v, num_heads)
-    _cuda.check_cuda("flash_attention_backward", torch.bfloat16, dout)
-    _cuda.check_cuda("flash_attention_backward", torch.float32, lse, di)
+    hd = _bwd_check(q, k, v, dout, lse, di, num_heads)
     B, L, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     BWD_DKV_KERNEL.launch(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(dout),
@@ -115,9 +164,7 @@ def backward_dkv(q, k, v, dout, lse, di, num_heads: int):
 
 def backward_dq(q, k, v, dout, lse, di, num_heads: int):
     """The K2-dq kernel: dq. Inputs as in `backward_dkv`."""
-    hd = _check(q, k, v, num_heads)
-    _cuda.check_cuda("flash_attention_backward", torch.bfloat16, dout)
-    _cuda.check_cuda("flash_attention_backward", torch.float32, lse, di)
+    hd = _bwd_check(q, k, v, dout, lse, di, num_heads)
     B, L, _ = q.shape
     dq = torch.empty_like(q)
     BWD_DQ_KERNEL.launch(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(dout),

@@ -9,7 +9,9 @@ Inputs are bf16 on the card; each kernel is held to its plain PyTorch
 version on the same bf16 inputs within relative L2 1e-2 (the two round the
 bf16 products at different places; chip_smoke.py holds the same bar at the
 main path's shapes); the backward kernels are held to autograd of the plain
-version at the same bar, and the forward's fp32 row logsumexp to 1e-4.
+version and to their own plain versions (`backward_dkv_reference`,
+`backward_dq_reference`) at the same bar, and the forward's fp32 row
+logsumexp to 1e-4.
 """
 
 import pytest
@@ -160,14 +162,20 @@ def test_depth_attention_kernel(dev, B, W, D, C, heads):
     assert _rel(out, da._reference(q, k, v, heads)) <= REL_L2
 
 
-@pytest.mark.parametrize("B,L,heads,hd", [
-    (8, 1024, 8, 40),  # the training path's shape
-    (1, 1000, 2, 64),  # ragged last tile
-    (2, 200, 3, 16),
-])
+def _bwd_rel(got, want, floor):
+    """Relative L2 of a gradient, against at least `floor` (at L = 1 the
+    exact dq and dk are 0: one key takes all the weight)."""
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).norm() / max(float(want.norm()), floor))
+
+
+@pytest.mark.parametrize("B,L,heads,hd", [(8, 1024, 8, 40)] + [  # the training path's shape
+    (2 if L < 1000 else 1, L, 3 if L < 1000 else 2, hd)
+    for L in (1, 65, 200, 300, 1000, 1024) for hd in (8, 16, 40, 64)])  # ragged L, head_dim
 def test_flash_attention_backward_kernels(dev, B, L, heads, hd):
-    """K2-dkv and K2-dq against autograd of the plain version, and the
-    forward's row logsumexp against the plain one."""
+    """K2-dkv and K2-dq against autograd of the plain version and against
+    their own plain versions (on the same lse and di), and the forward's
+    row logsumexp against the plain one."""
     g = torch.Generator(dev).manual_seed(5)
     q, k, v, dout = (_randn(g, B, L, heads * hd) for _ in range(4))
     out, lse = fa._forward(q, k, v, heads)
@@ -178,8 +186,58 @@ def test_flash_attention_backward_kernels(dev, B, L, heads, hd):
     assert (fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches) == (n_dkv + 1, n_dq + 1)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     ref = torch.autograd.grad(fa.attention_reference(*leaves, heads), leaves, dout)
+    di = fa.row_dot(out, dout, heads)
+    plain = (fa.backward_dq_reference(q, k, v, dout, lse, di, heads),
+             *fa.backward_dkv_reference(q, k, v, dout, lse, di, heads))
+    floor = float(ref[2].float().norm())
+    for got, want, own in zip((dq, dk, dv), ref, plain):
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        assert _bwd_rel(got, want, floor) <= REL_L2
+        assert _bwd_rel(got, own, floor) <= REL_L2
+
+
+def test_flash_attention_backward_reads_nothing_past_its_tensors(dev):
+    """q, k, v, dout, lse and di at the start of buffers whose tail is NaN,
+    at a ragged L and head_dim 40: the backward kernels' TMA boxes reach
+    past the last head's columns and the last sample's rows, and must see
+    zeros there; their plain loads of lse and di stop at L."""
+    g = torch.Generator(dev).manual_seed(9)
+    B, L, heads, hd = 2, 65, 4, 40
+
+    def padded(t):
+        buf = torch.full((t.numel() + 64 * heads * hd,), float("nan"), device=dev, dtype=t.dtype)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(t.shape)
+
+    q, k, v, dout = (padded(_randn(g, B, L, heads * hd)) for _ in range(4))
+    out, lse = fa._forward(q, k, v, heads)
+    di = padded(fa.row_dot(out, dout, heads))
+    lse = padded(lse)
+    dk, dv = fa.backward_dkv(q, k, v, dout, lse, di, heads)
+    dq = fa.backward_dq(q, k, v, dout, lse, di, heads)
+    torch.cuda.synchronize()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    ref = torch.autograd.grad(fa.attention_reference(*leaves, heads), leaves, dout)
     for got, want in zip((dq, dk, dv), ref):
-        assert got.dtype == torch.bfloat16 and _rel(got, want) <= REL_L2
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= REL_L2
+
+
+def test_flash_attention_backward_raises_on_misaligned_dout(dev):
+    """dout 8 bytes off 16-byte alignment (a contiguous view can be) has no
+    tensor map: both wrappers raise and launch nothing."""
+    g = torch.Generator(dev).manual_seed(10)
+    q, k, v, dout = (_randn(g, 2, 64, 2 * 40) for _ in range(4))
+    out, lse = fa._forward(q, k, v, 2)
+    di = fa.row_dot(out, dout, 2)
+    shifted = torch.empty(dout.numel() + 4, device=dev, dtype=dout.dtype)[4:].view(dout.shape)
+    shifted.copy_(dout)
+    n_dkv, n_dq = fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.backward_dkv(q, k, v, shifted, lse, di, 2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.backward_dq(q, k, v, shifted, lse, di, 2)
+    assert (fa.BWD_DKV_KERNEL.launches, fa.BWD_DQ_KERNEL.launches) == (n_dkv, n_dq)
 
 
 @pytest.mark.parametrize("shape,groups,act,eps", [
