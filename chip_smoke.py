@@ -19,11 +19,14 @@ Phases (any failure exits non-zero):
      for flash attention and depth attention, and its backward for the
      flash backward kernels (K2-dkv and K2-dq against the plain version's
      autograd gradients and against their own plain versions,
-     `backward_dkv_reference` and `backward_dq_reference`). K2, K2-dkv,
-     K2-dq, SDPA and its backward are also timed on the device alone
-     (torch.profiler), and the three K2 kernels' registers, shared memory
-     and spill bytes are read from their `-Xptxas -v` build log (any spill
-     fails). K4 (GroupNorm)
+     `backward_dkv_reference` and `backward_dq_reference`). K1 logs the
+     design that `ctx_design` picks at each shape (its G and grid) and, at
+     the Hopper design's shapes, holds and times every other design the
+     shape could take (the other G, the WMMA design). K1, K2, K2-dkv,
+     K2-dq, K3, SDPA and its backward are also timed on the device alone
+     (torch.profiler), and the registers, shared memory and spill bytes of
+     K1's Hopper design and of the three K2 kernels are read from their
+     `-Xptxas -v` build log (any spill fails). K4 (GroupNorm)
      is held the same way at every GroupNorm call that the censuses of
      phases 3, 6 and 7 find, after phase 7 (its yardstick: F.group_norm and
      the activation);
@@ -35,8 +38,9 @@ Phases (any failure exits non-zero):
   4. the full avatar: `Config()` defaults (16 views at 256^2, bf16, CFG 2.0,
      50 DDIM steps, coarse mesh voxels), seeded weights cast for serving; one
      warm-up run, then one timed run with every launch counter set to 0
-     just before it: the depth-context kernel must launch 500 times, the
-     flash kernel 250 times and each of K4's two kernels once per GroupNorm
+     just before it: the depth-context kernel must launch 500 times (350
+     in its Hopper design, W=32 and W=16; 150 in the WMMA one), the flash
+     kernel 250 times and each of K4's two kernels once per GroupNorm
      call of the census, and the images must be finite and not constant;
   5. profile one denoising step with torch.profiler: the device's busy and
      idle share and its kernel time by group and by name;
@@ -305,12 +309,49 @@ def device_ms(fn, iters: int = 10):
             sorted({e.name[:90] for e in kern}))
 
 
-def check_k1(shapes, device, rn, iters: int, path: str):
-    """K1 against `_ctx_reference` at each of `shapes` (one row each, tagged
-    with the path, serving or training, whose launches per_step counts)."""
+def k1_kernel(s):
+    """The CudaKernel of the K1 design that `ctx_design` picks for shape s."""
     from morphablediffusion_torch.ops import depth_attention as da
 
-    rows = []
+    d = da.ctx_design(s["B"], s["W"] ** 2, s["Cc"], s["Ci"], s["heads"])
+    return da.WGMMA_KERNEL if d.kernel == "wgmma" else da.KERNEL
+
+
+def k1_launches(shapes):
+    """K1's launches per step by design (its kernels' names; their sum is
+    K1's launches)."""
+    from morphablediffusion_torch.ops import depth_attention as da
+
+    n = {da.KERNEL.name: 0, da.WGMMA_KERNEL.name: 0}
+    for s in shapes:
+        n[k1_kernel(s).name] += s["per_step"]
+    return n
+
+
+def k1_alternatives(s):
+    """The designs shape s could also run, besides `ctx_design`'s: every
+    other G of the Hopper design and the WMMA design (timed beside it in
+    the same call, never launched by the port)."""
+    from morphablediffusion_torch.ops import depth_attention as da
+
+    B, S, Cc, Ci, heads = s["B"], s["W"] ** 2, s["Cc"], s["Ci"], s["heads"]
+    chosen = da.ctx_design(B, S, Cc, Ci, heads)
+    if chosen.kernel != "wgmma":
+        return []
+    alts = [da.CtxDesign("wgmma", g, da.WGMMA_TILE) for g, _ in da.WGMMA_GROUPS[(Cc, Ci // heads)]
+            if g != chosen.group and heads % g == 0]
+    return alts + [da.CtxDesign("wmma", 1, da._tile(B, S, heads))]
+
+
+def check_k1(shapes, device, rn, iters: int, path: str):
+    """K1 against `_ctx_reference` at each of `shapes` (one row each, tagged
+    with the path, serving or training, whose launches per_step counts),
+    timed by CUDA events and on the device alone; at the Hopper design's
+    shapes also every alternative design, held to the same bar. Returns
+    {kernel name: rows} by the design that `ctx_design` picks."""
+    from morphablediffusion_torch.ops import depth_attention as da
+
+    rows = {da.KERNEL.name: [], da.WGMMA_KERNEL.name: []}
     for s in shapes:
         B, W, D, Cc, Ci, heads = s["B"], s["W"], s["D"], s["Cc"], s["Ci"], s["heads"]
         q, ctx = rn(B, Ci, W, W), rn(B, Cc, D, W, W)
@@ -320,25 +361,69 @@ def check_k1(shapes, device, rn, iters: int, path: str):
         A, B2 = da._ctx_affine(mean_x, m2, Wp, torch.ones(Cc, device=device),
                                torch.zeros(Cc, device=device), 8, 1e-5)
         args = (q, ctx, Wp, A, B2, Wk, Wv, heads)
+        design, kernel = da.ctx_design(B, W * W, Cc, Ci, heads), k1_kernel(s)
+        before = kernel.launches
         out = da.ctx_attention(*args)
         plain = da._ctx_reference(*args)
         torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise AssertionError(f"K1 at W={W} B={B}: {kernel.name} did not launch once")
         err, mae = rel_l2(out, plain), float((out.float() - plain.float()).abs().max())
         ms = cuda_ms(lambda: da.ctx_attention(*args), iters)
+        dev_ms, _ = device_ms(lambda: da.ctx_attention(*args))
         plain_ms = cuda_ms(lambda: da._ctx_reference(*args), max(2, iters // 4))
         flops, nbytes = k1_cost(s)
         b_ms, b_by = bound_ms(flops, nbytes)
-        log(f"K1 depth_attention_ctx ({path}) W={W} D={D} Cc={Cc} Ci={Ci} B={B}: "
-            f"rel_l2={err:.3e} max_abs={mae:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) "
-            f"x{s['per_step']}/step")
-        if not err <= REL_L2_KERNEL:
-            raise AssertionError(f"K1 ({path}) at W={W} B={B}: rel L2 {err:.3e} > "
-                                 f"{REL_L2_KERNEL}")
-        rows.append(dict(shape=f"B={B},W={W},D={D},Cc={Cc}", path=path,
-                         per_step=s["per_step"], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         flops=flops, bytes=nbytes, rel_l2=err, max_abs_err=mae))
+        log(f"K1 depth_attention_ctx ({path}) W={W} D={D} Cc={Cc} Ci={Ci} B={B}: design "
+            f"{design.kernel} G={design.group} tile={design.tile} grid="
+            f"{design.blocks(B, W * W, heads)} blocks: rel_l2={err:.3e} max_abs={mae:.3e} "
+            f"ms={ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
+            f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), {b_ms / dev_ms:.1%} of "
+            f"the bound on the device, x{s['per_step']}/step")
+        alt_errs = []
+        for alt in k1_alternatives(s):
+            launch = lambda: da._launch_ctx(*args, alt)
+            alt_err = rel_l2(launch(), plain)
+            alt_errs.append(alt_err)
+            alt_ms = cuda_ms(launch, iters)
+            alt_dev, _ = device_ms(launch)
+            log(f"  alternative {alt.kernel} G={alt.group} tile={alt.tile} grid="
+                f"{alt.blocks(B, W * W, heads)} blocks: rel_l2={alt_err:.3e} ms={alt_ms:.4f} "
+                f"(device {alt_dev:.4f})")
+        if not max([err, *alt_errs]) <= REL_L2_KERNEL:
+            raise AssertionError(f"K1 ({path}) at W={W} B={B}: rel L2 {err:.3e} (alternative "
+                                 f"designs {alt_errs}) > {REL_L2_KERNEL}")
+        rows[kernel.name].append(dict(
+            shape=f"B={B},W={W},D={D},Cc={Cc}", path=path, per_step=s["per_step"], ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, flops=flops, bytes=nbytes,
+            rel_l2=err, max_abs_err=mae, design=f"{design.kernel} G={design.group}"))
     return rows
+
+
+def k1_resources():
+    """The Hopper design of K1 in each configuration it is built for: the
+    ptxas resources, the dynamic shared memory of a block and the blocks per
+    SM as the library reports them. Raises if ptxas reports spills."""
+    from morphablediffusion_torch.ops import depth_attention as da
+
+    kernel = da.WGMMA_KERNEL
+    lib = ctypes.CDLL(str(kernel.lib_path()))
+    lines = []
+    for (Cc, hd), groups in da.WGMMA_GROUPS.items():
+        for g, _ in groups:
+            res = ptxas_resources(kernel, f"md_ctx_wgmma_kernelILi{Cc}ELi{hd}ELi{g}E")
+            smem = lib.md_depth_attention_ctx_wgmma_smem_bytes(Cc, hd, g)
+            blocks = lib.md_depth_attention_ctx_wgmma_blocks_per_sm(Cc, hd, g)
+            if res is None:
+                lines.append(f"Cc={Cc} hd={hd} G={g}: dynamic smem {smem} B, {blocks} blocks "
+                             "per SM; ptxas resources not in this process's build log")
+                continue
+            if res["spill_stores"] or res["spill_loads"]:
+                raise AssertionError(f"K1 wgmma Cc={Cc} hd={hd} G={g} spills: {res}")
+            lines.append(f"Cc={Cc} hd={hd} G={g}: {res['registers']} registers, dynamic smem "
+                         f"{smem} B, {blocks} blocks per SM, spill stores {res['spill_stores']} "
+                         f"B, spill loads {res['spill_loads']} B")
+    return "; ".join(lines)
 
 
 def check_kernels(k1_shapes, k2_shape, device, iters: int = 10):
@@ -352,7 +437,8 @@ def check_kernels(k1_shapes, k2_shape, device, iters: int = 10):
     rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=device) * std).bfloat16()
     results = {}
 
-    results["depth_attention_ctx"] = check_k1(k1_shapes, device, rn, iters, "serving")
+    results.update(check_k1(k1_shapes, device, rn, iters, "serving"))
+    log(f"  K1 Hopper design resources: {k1_resources()}")
 
     s = k2_shape
     B, L, heads, hd = s["B"], s["L"], s["heads"], s["hd"]
@@ -443,7 +529,7 @@ def check_train_kernels(shapes, device, iters: int = 10):
     results = {"depth_attention": []}
 
     with torch.no_grad():
-        results["depth_attention_ctx"] = check_k1(shapes["k1"], device, rn, iters, "training")
+        results.update(check_k1(shapes["k1"], device, rn, iters, "training"))
         for s in shapes["k3"]:
             B, W, D, C, heads = s["B"], s["W"], s["D"], s["C"], s["heads"]
             S, hd = W * W, C // heads
@@ -460,20 +546,24 @@ def check_train_kernels(shapes, device, iters: int = 10):
             lib = F.scaled_dot_product_attention(qs, *kv).reshape(B, S, C).transpose(1, 2)
             lib_err = rel_l2(lib.reshape(q.shape), plain)
             lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, *kv), iters)
+            # the device's own time, the permutes above not counted
+            dev_ms, _ = device_ms(lambda: da.attention_kernel(q, k, v, heads))
+            lib_dev_ms, lib_names = device_ms(lambda: F.scaled_dot_product_attention(qs, *kv))
             flops, nbytes = k3_cost(s)
             b_ms, b_by = bound_ms(flops, nbytes)
             log(f"K3 depth_attention W={W} D={D} C={C} B={B}: rel_l2={err:.3e} "
-                f"max_abs={mae:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-                f"(sdpa rel_l2 {lib_err:.2e}) bound_ms={b_ms:.5f} ({b_by}; "
-                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB) x{s['per_step']}/step")
+                f"max_abs={mae:.3e} ms={ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+                f"sdpa_ms={lib_ms:.4f} (device {lib_dev_ms:.4f}; {lib_names}) (sdpa rel_l2 "
+                f"{lib_err:.2e}) bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.3f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB) x{s['per_step']}/step")
             if not (err <= REL_L2_KERNEL and lib_err <= REL_L2_KERNEL):
                 raise AssertionError(f"K3 at W={W}: rel L2 {err:.3e} (sdpa {lib_err:.3e}) "
                                      f"> {REL_L2_KERNEL}")
             results["depth_attention"].append(dict(
                 shape=f"B={B},W={W},D={D},C={C}", path="training", per_step=s["per_step"],
-                ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, flops=flops, bytes=nbytes, rel_l2=err, max_abs_err=mae,
-                library_ms=lib_ms))
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, flops=flops,
+                bytes=nbytes, rel_l2=err, max_abs_err=mae, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms))
 
     s = shapes["k2"]
     B, L, heads, hd = s["B"], s["L"], s["heads"], s["hd"]
@@ -754,7 +844,8 @@ def kernel_group(name: str) -> str:
     `pytorch_flash::...`, memory-efficient `fmha_...` or cuDNN `..._sdpa_...`
     backends), then the library groups."""
     low = name.lower()
-    for key, group in (("depth_ctx_kernel", "K1 depth_attention_ctx"),
+    for key, group in (("md_ctx_wgmma_kernel", "K1 depth_attention_ctx (wgmma)"),
+                       ("depth_ctx_kernel", "K1 depth_attention_ctx (WMMA)"),
                        ("md_flash_fwd_kernel", "K2 flash_attention"),
                        ("md_flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
                        ("md_flash_bwd_dq_kernel", "K2-dq flash_attention_bwd"),
@@ -838,8 +929,9 @@ NAMED_LEAVES = (
 
 
 def train_expected_launches(shapes):
-    """Launches per training step of each kernel, from `train_shapes`."""
-    return {"depth_attention_ctx": sum(s["per_step"] for s in shapes["k1"]),
+    """Launches per training step of each kernel, from `train_shapes` (K1's
+    by design)."""
+    return {**k1_launches(shapes["k1"]),
             "depth_attention": sum(s["per_step"] for s in shapes["k3"]),
             "flash_attention": shapes["k2"]["per_step"],
             "flash_attention_bwd_dkv": shapes["k2"]["bwd_per_step"],
@@ -965,8 +1057,9 @@ def kernel_entry(name, source, replaces, rows, launches, path, run, train_per_st
         "max_rel_l2": max(r["rel_l2"] for r in rows), "shape_rows": len(rows),
     }
     if list_shapes:
-        entry["shapes"] = [{k: r[k] for k in ("shape", "path", "per_step", "ms", "plain_ms",
-                                              "bound_ms", "rel_l2")} for r in rows]
+        entry["shapes"] = [{k: r[k] for k in ("shape", "path", "per_step", "ms", "device_ms",
+                                              "plain_ms", "bound_ms", "rel_l2", "design")
+                            if k in r} for r in rows]
     return entry
 
 
@@ -1052,12 +1145,12 @@ def timed_avatar(sampler, batch, kernels, want, label: str, warmup: bool = True)
 
 
 def avatar_launches(kernels, cfg, k1_shapes, k2_shape, gn_counts):
-    """Launches of every kernel in one serving avatar: K1 and K2 per step
-    (main_path_shapes) times the steps, K4 per GroupNorm call of the census,
+    """Launches of every kernel in one serving avatar: K1 (by design) and K2
+    per step (main_path_shapes) times the steps, K4 per GroupNorm call of the census,
     none of the training kernels."""
     want = {k.name: 0 for k in kernels}
     steps = cfg.model.sample_steps
-    want.update(depth_attention_ctx=steps * sum(s["per_step"] for s in k1_shapes),
+    want.update({n: steps * c for n, c in k1_launches(k1_shapes).items()},
                 flash_attention=steps * k2_shape["per_step"], **gn_launches(gn_counts))
     return want
 
@@ -1097,8 +1190,8 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    kernels = (da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL, fa.BWD_DQ_KERNEL, da.DEPTH_KERNEL,
-               *gn.KERNELS)
+    kernels = (da.WGMMA_KERNEL, da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL, fa.BWD_DQ_KERNEL,
+               da.DEPTH_KERNEL, *gn.KERNELS)
     _cuda.build(kernels)
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
@@ -1134,7 +1227,8 @@ def main() -> int:
     sampler = SyncDDIMSampler(model, sample_steps=cfg.model.sample_steps)
     want = avatar_launches(kernels, cfg, k1_shapes, k2_shape, gn_avatar)
     _, _, launches = timed_avatar(sampler, batch, kernels, want, "phase 4")
-    if want["depth_attention_ctx"] != 500 or want["flash_attention"] != 250:
+    if (want[da.KERNEL.name] + want[da.WGMMA_KERNEL.name] != 500
+            or want["flash_attention"] != 250):
         raise AssertionError(f"expected launches {want}")
 
     # 5. where one denoising step's device time goes
@@ -1179,8 +1273,10 @@ def main() -> int:
         kernel_entry(name, f"morphablediffusion_torch/csrc/{source}", replaces, checked[name],
                      *run(name), per_step[name])
         for name, source, replaces, run in (
+            ("depth_attention_ctx_wgmma", "depth_attention_ctx.cu",
+             "morphablediffusion_tpu/ops/depth_attention.py:236 (W=32, W=16)", serving),
             ("depth_attention_ctx", "depth_attention_ctx.cu",
-             "morphablediffusion_tpu/ops/depth_attention.py:236", serving),
+             "morphablediffusion_tpu/ops/depth_attention.py:236 (W=8, W=4)", serving),
             ("flash_attention", "flash_attention.cu",
              "morphablediffusion_tpu/models/layers.py:277", serving),
             ("flash_attention_bwd_dkv", "flash_attention_bwd.cu",

@@ -1,12 +1,16 @@
 // Hopper machinery shared by the flash-attention kernels
-// (flash_attention.cu: the forward; flash_attention_bwd.cu: K2-dkv, K2-dq):
-// mbarriers, TMA loads and stores of 4-D tensor maps, wgmma descriptors and
+// (flash_attention.cu: the forward; flash_attention_bwd.cu: K2-dkv, K2-dq)
+// and the depth-context kernel's Hopper design (depth_attention_ctx.cu):
+// mbarriers, TMA loads and stores of tensor maps, wgmma descriptors and
 // products, and the host's tensor-map encoding.
 //
 // Every tile is 64 bf16 columns (128 bytes, the 128-byte swizzle's row)
-// by some rows, copied by TMA from a (batch, L, num_heads * head_dim)
-// tensor seen as the 4-D map {head_dim, num_heads, L, batch}: columns past
-// head_dim and rows past L arrive as zeros, and a TMA store clips them.
+// by some rows. The flash kernels copy them by TMA from a (batch, L,
+// num_heads * head_dim) tensor seen as the 4-D map {head_dim, num_heads, L,
+// batch} (`encode`, `tma_load`): columns past head_dim and rows past L
+// arrive as zeros, and a TMA store clips them. The depth-context kernel
+// encodes its own maps of 2 to 4 dimensions (`encode_box`, `tma_load_2d`
+// ... `tma_load_4d`, `tma_store_3d`).
 //
 // A source that includes this header is rebuilt when the header changes
 // (ops/_cuda.py hashes every *.cuh beside the sources).
@@ -89,6 +93,55 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
+// Boxes of tensor maps of 2, 3 and 4 dimensions (encode_box) at element
+// coordinates c0 (innermost) .. c3, completing on the mbarrier bar.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A box of a 3-D map from shared memory at src; returns once src may be
+// reused.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Byte offset of element (row, col) of a tile of 128-byte rows in the
+// 128-byte swizzle (the tile 1024-byte aligned): the 16-byte chunk col / 8
+// of a row sits at chunk (col / 8) ^ (row % 8).
+__device__ __forceinline__ int sw128_offset(int row, int col) {
+  return row * ROW_BYTES + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) << 1));
+}
+
 // wgmma descriptor of a tile with 128-byte rows in 128-byte swizzle: start
 // address, leading byte offset (unused by the K-major operands; for an
 // MN-major B the atom stride, unused at N <= 64) and stride byte offset
@@ -109,6 +162,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Wait until at most N committed groups of products are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keep the compiler from moving accesses to wgmma's registers across the
@@ -143,6 +201,60 @@ __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
+
+// The same with A MN-major (transposed: its 64 rows contiguous, a tile of
+// 16 k-rows of 128 bytes, wgmma's transpose-A flag) and B K-major, both from
+// shared memory; A's descriptor as V's (both byte offsets 1024 B), a k16
+// step 16 rows, 2048 bytes further (+128). (X_d Wp^T in the depth-context
+// kernel, X_d stored [channel][pixel].)
+__device__ __forceinline__ void wgmma_ss64_mn_a(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N fp32) = or += A (64 x 16, bf16 in registers) B^T, B (N x 16)
+// K-major from shared memory (the rows of an nn.Linear weight); scale_d = 0
+// overwrites D. (k = y Wk^T and v = y Wv^T in the depth-context kernel.)
+template <int N>
+struct WgmmaRSK;
+
+template <>
+struct WgmmaRSK<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRSK<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
 
 // D (64 x N fp32) += A (64 x 16, bf16 in registers) B (16 x N), B from
 // shared memory MN-major (transposed); one specialisation per head_dim N.
@@ -318,6 +430,22 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int L, 
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
          steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
+}
+
+// A bf16 tensor of `rank` (2 to 5) dimensions as a tensor map: dims
+// innermost first (dims[0] elements contiguous), strides[i] the bytes
+// between steps of dimension i + 1 (multiples of 16), box the elements
+// copied per dimension (box[0] = 64: one 128-byte row); 128-byte swizzle,
+// zero fill.
+int encode_box(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rank,
+               const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
+  const CUresult res =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+         const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
 }
 

@@ -152,6 +152,13 @@ def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor,
             raise ValueError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
 
 
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts 16-byte aligned, as a TMA tensor map
+    needs."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: tensors must be 16-byte aligned (TMA)")
+
+
 def recompute_grads(fn, inputs, needs, grad_out):
     """Gradients of fn(*inputs) for the inputs that need one (None for the
     others and for inputs that are None), recomputed through fn, a kernel's

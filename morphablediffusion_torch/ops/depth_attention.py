@@ -10,8 +10,11 @@ proj_context -> GroupNorm(relu) -> to_k/to_v -> depth attention. The
 GroupNorm statistics of the bias-free projection follow from the context's
 first and second moments (`ctx_moments`, `_ctx_affine`, plain fp32 torch,
 outside the kernel), so the norm folds into a per-(sample, channel) affine
-y = relu(p * A + B2), and the Hopper kernel `csrc/depth_attention_ctx.cu`
-streams the raw context once without writing any (B, C, D, H, W) tensor.
+y = relu(p * A + B2), and the kernel `csrc/depth_attention_ctx.cu` streams
+the raw context once without writing any (B, C, D, H, W) tensor. It has two
+designs, chosen by shape before launch (`ctx_design`): the Hopper one (TMA,
+wgmma, the chain in registers) at the two wide levels, and the WMMA one
+for every other shape.
 
 Layout is channels-first: q (B, Ci, H, W), context (B, Cc, D, H, W), k/v
 (B, C, D, H, W), outputs (B, Ci, H, W). Weights are nn.Linear (out, in).
@@ -30,14 +33,18 @@ version, as the JAX package's custom VJPs do (`_bwd`, `_ctx_bwd`).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from morphablediffusion_torch.ops import _cuda
 
-KERNEL = _cuda.CudaKernel(
-    "depth_attention_ctx", "depth_attention_ctx.cu", "md_depth_attention_ctx_fwd",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p])
+_CTX_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+KERNEL = _cuda.CudaKernel(  # K1, the WMMA design
+    "depth_attention_ctx", "depth_attention_ctx.cu", "md_depth_attention_ctx_fwd", _CTX_ARGS)
+WGMMA_KERNEL = _cuda.CudaKernel(  # K1, the Hopper design
+    "depth_attention_ctx_wgmma", "depth_attention_ctx.cu", "md_depth_attention_ctx_wgmma",
+    _CTX_ARGS)
 DEPTH_KERNEL = _cuda.CudaKernel(
     "depth_attention", "depth_attention.cu", "md_depth_attention_fwd",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
@@ -99,8 +106,61 @@ def _ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int):
 
 
 def _tile(B: int, S: int, num_heads: int) -> int:
-    """Pixels per block: 64 where that still gives >= 256 blocks, else 16."""
+    """Pixels per block of the WMMA design: 64 where that still gives >= 256
+    blocks, else 16."""
     return 64 if S % 64 == 0 and B * (S // 64) * num_heads >= 256 else 16
+
+
+# (Cc, head_dim) -> (G, blocks per SM) for each number of heads per block G
+# that the Hopper design is built for, fewest FLOPs first
+# (csrc/depth_attention_ctx.cu::MD_CTX_WGMMA_CONFIGS; the blocks per SM are
+# what the card reports for each configuration's shared memory and
+# registers, logged by chip_smoke.py::k1_resources)
+WGMMA_GROUPS = {(64, 32): ((4, 2), (2, 3)), (128, 64): ((2, 1), (1, 2))}
+WGMMA_TILE = 64  # pixels per block: the rows of a wgmma tile
+# blocks that fill the H100's 132 SMs once: the main path's grids come in
+# multiples of 64 blocks, and 128 leaves 4 SMs idle
+WGMMA_FILL = 128
+
+
+class CtxDesign(NamedTuple):
+    """Which K1 design runs a shape: `kernel` "wgmma" (the Hopper design) or
+    "wmma" (the port's first), `group` heads per block, `tile` pixels per block."""
+    kernel: str
+    group: int
+    tile: int
+
+    def blocks(self, B: int, S: int, num_heads: int) -> int:
+        return B * (S // self.tile) * (num_heads // self.group)
+
+
+def ctx_design(B: int, S: int, Cc: int, Ci: int, num_heads: int) -> CtxDesign:
+    """The K1 design for q (B, Ci, S) and ctx (B, Cc, D, S) at num_heads.
+
+    The Hopper design takes (Cc, head_dim) in `WGMMA_GROUPS` with S a
+    multiple of 64: the main path's W=32 and W=16. Its G is the largest that
+    divides num_heads and whose grid still fills the card at its blocks per
+    SM (WGMMA_FILL of them per block an SM holds), else the smallest: on the
+    H100 fewer FLOPs won wherever the grid filled the card, more blocks
+    where it did not (chip_smoke.py times every G; PERF.md). Every other
+    shape takes the WMMA design (Cc and head_dim multiples of 16, S a
+    multiple of its tile). Raises ValueError for a shape that neither
+    takes."""
+    if num_heads < 1 or Ci % num_heads:
+        raise ValueError(f"depth_attention_ctx: {Ci} channels do not split into "
+                         f"{num_heads} heads")
+    hd = Ci // num_heads
+    options = [(CtxDesign("wgmma", g, WGMMA_TILE), per_sm)
+               for g, per_sm in WGMMA_GROUPS.get((Cc, hd), ()) if num_heads % g == 0]
+    if options and S % WGMMA_TILE == 0:
+        return next((o for o, per_sm in options
+                     if o.blocks(B, S, num_heads) >= WGMMA_FILL * per_sm), options[-1][0])
+    tile = _tile(B, S, num_heads)
+    if hd % 16 or Cc % 16 or S % tile:
+        raise ValueError(f"depth_attention_ctx: needs Cc, head_dim multiples of "
+                         f"16 and H*W a multiple of {tile}; got Cc={Cc}, "
+                         f"head_dim={hd}, H*W={S}")
+    return CtxDesign("wmma", 1, tile)
 
 
 def ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int):
@@ -108,30 +168,36 @@ def ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int):
 
     q (B, Ci, H, W); ctx (B, Cc, D, H, W); Wp (Cc, Cc); A, B2 (B, Cc) fp32;
     Wk, Wv (Ci, Cc). Returns (B, Ci, H, W), before to_out. CPU tensors take
-    `_ctx_reference`; CUDA tensors go to the kernel, which takes bf16.
+    `_ctx_reference`; CUDA tensors go to the kernel of `ctx_design`, which
+    takes bf16 (16-byte aligned for the Hopper design's tensor maps).
     """
     if not q.is_cuda:
         return _ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, num_heads)
+    B, Ci, H, W = q.shape
+    return _launch_ctx(q, ctx, Wp, A, B2, Wk, Wv, num_heads,
+                       ctx_design(B, H * W, ctx.shape[1], Ci, num_heads))
+
+
+def _launch_ctx(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int, design: CtxDesign):
+    """Launch `design`'s kernel (`ctx_attention` passes `ctx_design`'s;
+    chip_smoke.py also times the other designs a shape could take)."""
     _cuda.check_cuda("depth_attention_ctx", torch.bfloat16, q, ctx, Wp, Wk, Wv)
-    _cuda.check_cuda("depth_attention_ctx", torch.float32, A, B2)
+    _cuda.check_cuda("depth_attention_ctx", torch.float32, A, B2, device=q.device)
     B, Ci, H, W = q.shape
     Cc, D = ctx.shape[1], ctx.shape[2]
-    S = H * W
     if (ctx.shape != (B, Cc, D, H, W) or Wp.shape != (Cc, Cc)
             or Wk.shape != (Ci, Cc) or Wv.shape != (Ci, Cc)
-            or A.shape != (B, Cc) or B2.shape != (B, Cc)):
+            or A.shape != (B, Cc) or B2.shape != (B, Cc) or D < 1):
         raise ValueError("depth_attention_ctx: inconsistent shapes")
-    hd = Ci // num_heads
-    tile = _tile(B, S, num_heads)
-    if Ci % num_heads or hd % 16 or Cc % 16 or S % tile:
-        raise ValueError(f"depth_attention_ctx: needs Cc, head_dim multiples of "
-                         f"16 and H*W a multiple of {tile}; got Cc={Cc}, "
-                         f"head_dim={hd}, H*W={S}")
     out = torch.empty_like(q)
-    KERNEL.launch(_cuda.ptr(q), _cuda.ptr(ctx), _cuda.ptr(Wp), _cuda.ptr(A),
-                  _cuda.ptr(B2), _cuda.ptr(Wk), _cuda.ptr(Wv), _cuda.ptr(out),
-                  B, D, S, Cc, Ci, num_heads, tile, hd**-0.5,
-                  _cuda.stream_of(q))
+    args = [_cuda.ptr(t) for t in (q, ctx, Wp, A, B2, Wk, Wv, out)]
+    if design.kernel == "wgmma":
+        _cuda.check_aligned("depth_attention_ctx", q, ctx, Wp, Wk, Wv)
+        WGMMA_KERNEL.launch(*args, B, D, H * W, Cc, Ci, num_heads, design.group,
+                            (Ci // num_heads) ** -0.5, _cuda.stream_of(q))
+    else:
+        KERNEL.launch(*args, B, D, H * W, Cc, Ci, num_heads, design.tile,
+                      (Ci // num_heads) ** -0.5, _cuda.stream_of(q))
     return out
 
 

@@ -118,13 +118,8 @@ def _check(q, k, v, num_heads: int) -> int:
     if hd % 8 or hd > 64:
         raise ValueError(f"flash_attention: head_dim {hd} is not a multiple "
                          "of 8 up to 64")
-    _check_aligned("flash_attention", q, k, v)
+    _cuda.check_aligned("flash_attention", q, k, v)
     return hd
-
-
-def _check_aligned(name: str, *tensors) -> None:
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: tensors must be 16-byte aligned (TMA)")
 
 
 def _forward(q, k, v, num_heads: int):
@@ -146,7 +141,7 @@ def _bwd_check(q, k, v, dout, lse, di, num_heads: int) -> int:
     if dout.shape != q.shape or lse.shape != (B, num_heads, L) or di.shape != lse.shape:
         raise ValueError(f"flash_attention_backward: dout {dout.shape}, lse {lse.shape}, "
                          f"di {di.shape} for q {q.shape} and {num_heads} heads")
-    _check_aligned("flash_attention_backward", dout)
+    _cuda.check_aligned("flash_attention_backward", dout)
     return hd
 
 

@@ -43,9 +43,9 @@ def _rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=0):
+def _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=0, q_scale=1.0):
     g = torch.Generator(dev).manual_seed(seed)
-    q, ctx = _randn(g, B, Ci, W, W), _randn(g, B, Cc, D, W, W)
+    q, ctx = _randn(g, B, Ci, W, W, std=q_scale), _randn(g, B, Cc, D, W, W)
     Wp, Wk, Wv = (_randn(g, o, Cc, std=Cc ** -0.5) for o in (Cc, Ci, Ci))
     mean_x, m2 = da.ctx_moments(ctx)
     scale = 1.0 + 0.1 * torch.randn(Cc, generator=g, device=dev)
@@ -54,20 +54,75 @@ def _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=0):
     return q, ctx, Wp, A, B2, Wk, Wv, heads
 
 
-@pytest.mark.parametrize("B,W,D,Cc,Ci,heads", [
-    (2, 4, 6, 32, 64, 4),     # 16-pixel tiles, head_dim 16
-    (16, 8, 12, 64, 128, 4),  # 64-pixel tiles, head_dim 32
-    (1, 8, 5, 128, 256, 2),   # odd depth, head_dim 128
-    (3, 16, 3, 16, 64, 1),    # one head
+def _ctx_launches():
+    return {k.name: k.launches for k in (da.KERNEL, da.WGMMA_KERNEL)}
+
+
+@pytest.mark.parametrize("B,W,D,Cc,Ci,heads,q_scale,design", [
+    (2, 4, 6, 32, 64, 4, 1.0, "wmma"),        # 16-pixel tiles, head_dim 16
+    (16, 8, 12, 64, 128, 4, 1.0, "wgmma"),    # H*W = 64, head_dim 32: one pixel tile
+    (1, 8, 5, 128, 256, 2, 1.0, "wmma"),      # odd depth, head_dim 128
+    (3, 16, 3, 16, 64, 1, 1.0, "wmma"),       # one head
+    (16, 16, 24, 256, 512, 4, 1.0, "wmma"),   # WMMA's 64-pixel tiles
+    (16, 32, 48, 64, 128, 4, 1.0, "wgmma"),   # the main path's W=32 at serving, G = 4
+    (16, 16, 24, 128, 256, 4, 1.0, "wgmma"),  # W=16 at serving
+    (8, 32, 48, 64, 128, 4, 1.0, "wgmma"),    # W=32 in training, G = 2
+    (8, 16, 24, 128, 256, 4, 1.0, "wgmma"),   # W=16 in training
+    (2, 8, 1, 64, 128, 4, 1.0, "wgmma"),      # D = 1
+    (2, 8, 7, 64, 128, 4, 1.0, "wgmma"),      # D = 7: not a multiple of the ring's 4 stages
+    (2, 16, 1, 128, 256, 4, 1.0, "wgmma"),    # D = 1 at Cc 128
+    (2, 16, 5, 128, 256, 4, 1.0, "wgmma"),    # D = 5: not a multiple of 2 or 3 stages
+    (4, 32, 48, 64, 128, 4, 8.0, "wgmma"),    # q x 8: the running max moves across depth
+    (4, 16, 24, 128, 256, 4, 8.0, "wgmma"),
 ])
-def test_depth_attention_ctx_kernel(dev, B, W, D, Cc, Ci, heads):
-    args = _ctx_args(dev, B, W, D, Cc, Ci, heads)
-    before = da.KERNEL.launches
+def test_depth_attention_ctx_kernel(dev, B, W, D, Cc, Ci, heads, q_scale, design):
+    """One launch of the design `ctx_design` picks (asserted), within REL_L2
+    of the plain version."""
+    args = _ctx_args(dev, B, W, D, Cc, Ci, heads, q_scale=q_scale)
+    assert da.ctx_design(B, W * W, Cc, Ci, heads).kernel == design
+    kernel = da.WGMMA_KERNEL if design == "wgmma" else da.KERNEL
+    before = _ctx_launches()
     out = da.ctx_attention(*args)
     torch.cuda.synchronize()
-    assert da.KERNEL.launches == before + 1
+    assert _ctx_launches() == dict(before, **{kernel.name: before[kernel.name] + 1})
     assert out.shape == args[0].shape and out.dtype == torch.bfloat16
     assert _rel(out, da._ctx_reference(*args)) <= REL_L2
+
+
+@pytest.mark.parametrize("B,W,D,Cc,Ci,heads", [(4, 32, 9, 64, 128, 4), (4, 16, 9, 128, 256, 4),
+                                               (2, 8, 3, 64, 64, 2)])
+def test_depth_attention_ctx_every_group(dev, B, W, D, Cc, Ci, heads):
+    """Every G the Hopper design is built for at (Cc, head_dim), as
+    chip_smoke.py times them, and the WMMA design on the same inputs."""
+    args = _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=11)
+    want = da._ctx_reference(*args)
+    designs = [da.CtxDesign("wgmma", g, 64) for g, _ in da.WGMMA_GROUPS[(Cc, Ci // heads)]
+               if heads % g == 0] + [da.CtxDesign("wmma", 1, 16)]
+    for design in designs:
+        out = da._launch_ctx(*args, design)
+        torch.cuda.synchronize()
+        assert _rel(out, want) <= REL_L2, design
+
+
+def test_depth_attention_ctx_reads_nothing_past_its_tensors(dev):
+    """q, ctx and the weights at the start of buffers whose tail is NaN, at
+    W=16 (the Hopper design): its TMA boxes end at each tensor's last
+    element and must read nothing beyond it."""
+    B, W, D, Cc, Ci, heads = 2, 16, 5, 128, 256, 4
+
+    def padded(t):
+        buf = torch.full((t.numel() + 4096,), float("nan"), device=dev, dtype=t.dtype)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(t.shape)
+
+    q, ctx, Wp, A, B2, Wk, Wv, _ = _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=12)
+    q, ctx, Wp, Wk, Wv = (padded(t) for t in (q, ctx, Wp, Wk, Wv))
+    before = da.WGMMA_KERNEL.launches
+    out = da.ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, heads)
+    torch.cuda.synchronize()
+    assert da.WGMMA_KERNEL.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert _rel(out, da._ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, heads)) <= REL_L2
 
 
 def test_depth_attention_ctx_kernel_is_the_fused_chain(dev):
@@ -332,6 +387,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     args = list(_ctx_args(dev, 2, 4, 6, 32, 96, 4))  # head_dim 24
     with pytest.raises(ValueError, match="head_dim"):
         da.ctx_attention(*args)
+    args = list(_ctx_args(dev, 2, 8, 3, 64, 128, 4))  # the Hopper design's tensor maps
+    shifted = torch.empty(args[1].numel() + 4, device=dev, dtype=torch.bfloat16)[4:]
+    args[1] = shifted.view(args[1].shape).copy_(args[1])
+    before = da.WGMMA_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.ctx_attention(*args)
+    assert da.WGMMA_KERNEL.launches == before
     k = _randn(g, 2, 64, 6, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
         da.depth_attention(_randn(g, 2, 64, 4, 4), k.transpose(3, 4), k, 4)

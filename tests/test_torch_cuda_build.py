@@ -24,7 +24,8 @@ def _kernel(source):
     return _cuda.CudaKernel("k", source, "entry", [])
 
 
-@pytest.mark.parametrize("source", ["flash_attention.cu", "flash_attention_bwd.cu"])
+@pytest.mark.parametrize("source", ["flash_attention.cu", "flash_attention_bwd.cu",
+                                    "depth_attention_ctx.cu"])
 def test_lib_path_follows_the_shared_header(csrc, source):
     kernel = _kernel(source)
     before = kernel.lib_path()

@@ -131,6 +131,42 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     assert t_da._tile(16, 1024, 4) == 64 and t_da._tile(16, 64, 4) == 16
 
 
+# every K1 shape of the main path (4 heads, Ci = 2 Cc): serving at B=16,
+# training at B=8 (W >= 8), with the design, G and tile expected
+@pytest.mark.parametrize("B,W,Cc,design", [
+    (16, 32, 64, ("wgmma", 4, 64)), (16, 16, 128, ("wgmma", 2, 64)),
+    (16, 8, 256, ("wmma", 1, 16)), (16, 4, 512, ("wmma", 1, 16)),
+    (8, 32, 64, ("wgmma", 2, 64)), (8, 16, 128, ("wgmma", 1, 64)),
+    (8, 8, 256, ("wmma", 1, 16))])
+def test_ctx_design_of_the_main_path(B, W, Cc, design):
+    """The shape rule (`ctx_design`): the two wide levels take the Hopper
+    design, with the largest G whose grid fills the card at its blocks per
+    SM (else the smallest); the narrow levels the WMMA design."""
+    got = t_da.ctx_design(B, W * W, Cc, 2 * Cc, 4)
+    assert tuple(got) == design
+    assert got.blocks(B, W * W, 4) == B * (W * W // design[2]) * (4 // design[1])
+
+
+@pytest.mark.parametrize("B,S,Cc,Ci,heads", [
+    (2, 16, 32, 96, 4),     # head_dim 24: not a multiple of 16
+    (2, 20, 32, 64, 4),     # H*W not a multiple of the 16-pixel tile
+    (2, 64, 40, 80, 4),     # Cc 40
+    (2, 64, 64, 128, 3),    # 128 channels do not split into 3 heads
+])
+def test_ctx_design_refuses_what_neither_design_takes(B, S, Cc, Ci, heads):
+    with pytest.raises(ValueError, match="depth_attention_ctx"):
+        t_da.ctx_design(B, S, Cc, Ci, heads)
+
+
+def test_ctx_design_of_other_shapes():
+    """(Cc, head_dim) the Hopper design is built for but H*W not a multiple
+    of 64 takes the WMMA design; the Hopper design's G divides the heads."""
+    assert tuple(t_da.ctx_design(2, 48, 64, 128, 4)) == ("wmma", 1, 16)
+    assert tuple(t_da.ctx_design(2, 64, 64, 64, 2)) == ("wgmma", 2, 64)
+    assert tuple(t_da.ctx_design(1, 64, 128, 64, 1)) == ("wgmma", 1, 64)
+    assert tuple(t_da.ctx_design(1, 64, 128, 256, 2)) == ("wmma", 1, 16)  # head_dim 128
+
+
 @pytest.mark.parametrize("B,D,H,W,C,heads", [(2, 6, 4, 4, 64, 4),   # W < 8: folded in JAX
                                              (1, 5, 3, 8, 32, 2)])
 def test_depth_attention_forward_and_gradients(rng, B, D, H, W, C, heads):
