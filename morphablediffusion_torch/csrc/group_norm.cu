@@ -2,50 +2,65 @@
 // an optional fused activation (kernel K4).
 //
 // Replaces: the JAX package's ops/group_norm.py::_kernel (:79-110, launched
-// by _pallas_forward :113-136): per sample, fp32 sums of x and x^2 per
-// channel, then per group; var = max(E[x^2] - E[x]^2, 0); rsqrt(var + eps);
-// the affine; silu / relu; the output in x's dtype. It also covers
-// group_norm_shifted (:159-199): a (B, C) shift t is folded into the
-// per-channel sums as colsum + S*t and colsq + 2*t*colsum + S*t^2, so the
-// statistics are those of x + t without writing x + t.
+// by _pallas_forward :113-136): per sample, fp32 sums of x and x^2, then per
+// group; var = max(E[x^2] - E[x]^2, 0); rsqrt(var + eps); the affine; silu /
+// relu; the output in x's dtype. It also covers group_norm_shifted
+// (:159-199): a (B, C) shift t moves the statistics to those of x + t
+// without writing x + t: the sums become sum x + S*sum_c t_c and
+// sum x^2 + 2*sum t_c*x + S*sum_c t_c^2 (the per-channel colsum + S*t,
+// colsq + 2*t*colsum + S*t^2, added up over the group).
 //
 // What bounds it on the H100: memory. About 6-9 fp32 operations per element
 // against 2 bytes read and 2 written (bf16), far below the card's ratio of
-// operations to bytes; the least traffic is one read of x and one write of y.
-// This design reads x twice (once per launch): at the serving and training
-// shapes most maps (up to 268 MB at the VAE decode) do not stay in the 50 MB
-// L2, so it moves about 1.5x the bound's bytes.
+// operations to bytes; the least traffic is one read of x and one write of
+// y. The maps reach 268 MB (the VAE decode), far beyond the 50 MB L2, so a
+// design that reads x once for the statistics and again for the apply moves
+// ~1.5x the bound's bytes; this one reads it once wherever a group's span
+// fits its cluster's shared memory.
 //
-// Design (simple and right first; two launches, no atomics, deterministic):
-//  * stats: one warp per (row, chunk), a row being the S elements of one
-//    (sample, channel), cut into `splits` chunks (the wrapper picks about
-//    4096 elements a chunk); 16-byte loads where S and the pointer allow,
-//    fp32 sums of x and x^2 in registers, a warp-shuffle reduction, one
-//    float2 partial per (row, chunk). A long row (S up to 65 536 at the VAE
-//    decode) is split so that enough warps are in flight; a short one
-//    (S = 16 at the UNet's bottom) leaves lanes idle.
-//  * apply: one block of 256 threads per (sample, group, chunk of the
-//    group's contiguous cg*S elements). The block first adds up the
-//    partials of the group's cg channels (and folds the shift), reduces them
-//    to the group's mean and inverse std, and keeps per-channel A = inv *
-//    gamma and B2 = beta - mean * A (+ t * A) in shared memory; then it
-//    writes act(x * A + B2) in x's dtype over its chunk.
+// Design (one launch per call, a cluster reduction over DSMEM, no atomics,
+// deterministic):
+//  * a (sample, group) pair owns a contiguous span of cg*S elements. A
+//    cluster of `cluster` blocks (1 to 8, 256 threads each) takes one pair,
+//    block r the elements [r*chunk, (r+1)*chunk) of its span; where spans
+//    are small (the UNet's bottom, S = 16) one block takes `pack` pairs
+//    instead, each to a team of 8 / pack warps;
+//  * the block copies its elements into shared memory once (16-byte
+//    cp.async copies, all in flight together) and forms fp32 sums of x, x^2
+//    and, with a shift, t_c * x over them; warp shuffles, then the team's
+//    warps in order, then the cluster's blocks rank by rank through DSMEM
+//    give every block of the cluster the same totals;
+//  * from them the group's mean and inverse std, then per channel
+//    A = inv * gamma and B2 = beta - mean * A + t * A (the shift read as
+//    given, bf16 or fp32), and the block writes act(x * A + B2) from its
+//    shared copy in x's dtype;
+//  * a block holds at most `held` elements (the plan keeps a block's
+//    shared memory small enough for several blocks an SM; on the H100 one
+//    block of 128 KB an SM ran slower than reading x twice): where its
+//    share of a span is larger (the widest maps of the VAE decode), it
+//    reads the rest twice in the same launch, once for the sums and once
+//    for the apply.
+// The plan (cluster, pack, chunk, held, vector width) is chosen by shape and
+// dtype in ops/group_norm.py::gn_plan; this file checks it.
 // Layout: x, y (B, C, S) contiguous, bf16 or fp32; gamma, beta (C,) fp32;
-// shift (B, C) fp32 or null; partials (B * C * splits) float2. Offsets into
-// x are 64-bit (the VAE decode has 16 * 128 * 256^2 elements).
+// shift (B, C) bf16 or fp32, or null. Offsets into x are 64-bit (the VAE
+// decode has 16 * 128 * 256^2 elements).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cluster_common.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int NTHREADS = 256;
-constexpr int APPLY_CHUNK = 4096;  // elements of a group's span per apply block
-constexpr int ACT_SILU = 1, ACT_RELU = 2;  // 0: no activation
+constexpr int NTHREADS = 256, NWARPS = NTHREADS / 32;
+constexpr int ACT_SILU = 1, ACT_RELU = 2;     // 0: no activation
+constexpr int SHIFT_BF16 = 2;  // 1: fp32 shift, 0: none
+constexpr int RED_BYTES = 256;                // warp sums, cluster partials, statistics
 
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
@@ -99,204 +114,310 @@ __device__ __forceinline__ void store_vec(bf16* p, const float (&v)[VEC]) {
   }
 }
 
+// Copy VEC elements from device to shared memory: one 16-byte cp.async for
+// a full vector, else through registers.
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_in(T* s, const T* g) {
+  if constexpr (VEC * sizeof(T) == 16) {
+    cp_async16(s, g);
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) s[j] = g[j];
+  }
+}
+
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == ACT_SILU) return v / (1.f + __expf(-v));
   if (act == ACT_RELU) return fmaxf(v, 0.f);
   return v;
 }
 
-// One warp per (row, chunk of the row): part[row * splits + k] = (sum x, sum x^2).
+__device__ __forceinline__ float shift_at(const void* shift, int code, long i) {
+  return code == SHIFT_BF16 ? __bfloat162float(static_cast<const bf16*>(shift)[i])
+                            : static_cast<const float*>(shift)[i];
+}
+
+// A block's plan, and its shared-memory layout: the x elements it holds
+// (held for each of its pack pairs), the shift t, A and B2 per channel of
+// its pairs (pack * cg fp32 each), and the reduction scratch. The same
+// arithmetic is ops/group_norm.py::_gn_smem.
+struct Plan {
+  int cg, S, span;       // channels per group, elements per channel, cg * S
+  int pack, cluster;     // pairs per block (cluster 1), blocks per pair (pack 1)
+  int chunk;             // elements of a span a block takes (pack 1), else span
+  int held;              // of them, those it holds in shared memory
+  int x_bytes, table, bytes;
+  __host__ __device__ Plan(int cg_, int S_, int pack_, int cluster_, int chunk_, int held_,
+                           int esize)
+      : cg(cg_), S(S_), span(cg_ * S_), pack(pack_), cluster(cluster_), chunk(chunk_),
+        held(held_),
+        x_bytes(up16(pack_ * held_ * esize)),
+        table(up16(pack_ * cg_ * 4)),
+        bytes(x_bytes + 3 * table + RED_BYTES) {}
+};
+
+// y = act((x + t - mean) * inv * gamma + beta) per (sample, group).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(NTHREADS)
-    gn_stats_kernel(const T* __restrict__ x, float2* __restrict__ part, long rows, int S,
-                    int splits, int chunk) {
-  const int lane = threadIdx.x & 31;
-  const long item = (long)blockIdx.x * (NTHREADS / 32) + threadIdx.x / 32;
-  if (item >= rows * splits) return;  // whole warps leave together
-  const long row = item / splits;
-  const int beg = (int)(item % splits) * chunk;
-  const int end = min(S, beg + chunk);
-  const T* p = x + row * (long)S;
-  float s = 0.f, q = 0.f;
-  for (int i = beg + lane * VEC; i < end; i += 32 * VEC) {
-    float v[VEC];
-    load_vec<VEC>(p + i, v);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      s += v[j];
-      q = fmaf(v[j], v[j], q);
-    }
+    md_group_norm_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                         const float* __restrict__ beta, const void* __restrict__ shift,
+                         int shift_code, T* __restrict__ y, int G, long pairs, Plan pl,
+                         float eps, int act) {
+  extern __shared__ __align__(16) unsigned char md_k4_smem[];
+  T* xs = reinterpret_cast<T*>(md_k4_smem);
+  float* ts = reinterpret_cast<float*>(md_k4_smem + pl.x_bytes);
+  float* A = ts + pl.table / 4;
+  float* B2 = A + pl.table / 4;
+  float* wsum = B2 + pl.table / 4;  // [NWARPS][3]
+  float* part = wsum + 3 * NWARPS;  // [3]: this block's sums, read by its peers
+  float* stat = part + 4;           // [pack][2]: mean, inv
+
+  const int cg = pl.cg, S = pl.S, span = pl.span;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int team_warps = NWARPS / pl.pack;
+  const int team = warp / team_warps;                   // the team's pair in the block
+  const int nt = team_warps * 32;                       // threads of a team
+  const int tt = threadIdx.x - team * nt;               // thread in its team
+  const int rank = pl.cluster > 1 ? (int)(blockIdx.x % pl.cluster) : 0;
+  const long pair0 = pl.cluster > 1 ? (long)(blockIdx.x / pl.cluster)
+                                    : (long)blockIdx.x * pl.pack;
+  const long pair = pair0 + team;
+  const bool live = pair < pairs;
+  const int lo = rank * pl.chunk;                       // the block's elements of the span
+  const int hi = live ? min(span, lo + pl.chunk) : lo;
+  const int mid = min(hi, lo + pl.held);                // [lo, mid) held, [mid, hi) read twice
+  const long base = pair * (long)span;                  // the pair's first element
+  T* xt = xs + team * pl.held - lo;                     // shared copy, by span index
+  const T* xg = x + base;
+
+  // 1. the shift of the block's channels, and the block's x into shared memory
+  for (int i = threadIdx.x; i < pl.pack * cg; i += NTHREADS) {
+    const long row = pair0 * cg + i;
+    ts[i] = (shift_code != 0 && row < pairs * cg) ? shift_at(shift, shift_code, row) : 0.f;
   }
+  for (int i = lo + tt * VEC; i < mid; i += nt * VEC) copy_in<T, VEC>(xt + i, xg + i);
+  __syncthreads();
+  cp_async_wait_all();  // each thread reads back only its own copies
+
+  // 2. the thread's sums of x, x^2 and t * x
+  const float* tt_row = ts + team * cg;
+  float s = 0.f, q = 0.f, u = 0.f;
+  auto sums = [&](const T* src, int from, int to) {
+    for (int i = from + tt * VEC; i < to; i += nt * VEC) {
+      float v[VEC];
+      load_vec<VEC>(src + i, v);
+      float vs = 0.f;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        vs += v[j];
+        q = fmaf(v[j], v[j], q);
+      }
+      s += vs;
+      if (shift_code != 0) u = fmaf(tt_row[i / S], vs, u);  // S % VEC == 0: one channel
+    }
+  };
+  sums(xt, lo, mid);
+  sums(xg, mid, hi);
 #pragma unroll
   for (int o = 16; o; o >>= 1) {
     s += __shfl_xor_sync(0xffffffffu, s, o);
     q += __shfl_xor_sync(0xffffffffu, q, o);
+    u += __shfl_xor_sync(0xffffffffu, u, o);
   }
-  if (lane == 0) part[item] = make_float2(s, q);
-}
-
-// Sum of v over the block (NTHREADS threads); every thread gets the result.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read from a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  if (lane == 0) {
+    wsum[3 * warp] = s;
+    wsum[3 * warp + 1] = q;
+    wsum[3 * warp + 2] = u;
+  }
   __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < NTHREADS / 32; ++w) t += red[w];
-  return t;
-}
 
-// One block per (sample, group, chunk of the group's cg*S elements).
-template <typename T, int VEC>
-__global__ void __launch_bounds__(NTHREADS)
-    gn_apply_kernel(const T* __restrict__ x, const float2* __restrict__ part,
-                    const float* __restrict__ gamma, const float* __restrict__ beta,
-                    const float* __restrict__ shift, T* __restrict__ y, int C, int G, int S,
-                    int splits, int chunks, float eps, int act) {
-  extern __shared__ float coef[];  // A[cg], then B2[cg]
-  __shared__ float red[NTHREADS / 32];
-  const int cg = C / G;
-  float* A = coef;
-  float* B2 = coef + cg;
-  const long grp = blockIdx.x / chunks;  // b * G + g
-  const int chunk = blockIdx.x % chunks;
-  const int g = (int)(grp % G);
-  const long row0 = (grp / G) * C + (long)g * cg;  // the group's first (b, c) row
-
-  // per-channel sums of x + t, then the group's
-  float s = 0.f, q = 0.f;
-  for (int c = threadIdx.x; c < cg; c += NTHREADS) {
-    float cs = 0.f, cq = 0.f;
-    for (int k = 0; k < splits; ++k) {
-      const float2 pk = part[(row0 + c) * splits + k];
-      cs += pk.x;
-      cq += pk.y;
+  // 3. the team's sums (its warps in order): sum x and sum x^2 + 2 sum t*x;
+  // in a cluster, then the cluster's (its blocks in rank order), so every
+  // block of a cluster gets the same totals
+  if (threadIdx.x < pl.pack) {
+    float sx = 0.f, sq = 0.f, su = 0.f;
+    for (int w = threadIdx.x * team_warps; w < (threadIdx.x + 1) * team_warps; ++w) {
+      sx += wsum[3 * w];
+      sq += wsum[3 * w + 1];
+      su += wsum[3 * w + 2];
     }
-    if (shift != nullptr) {
-      const float t = shift[row0 + c];
-      cq = cq + 2.f * t * cs + (float)S * t * t;
-      cs = cs + (float)S * t;
-    }
-    s += cs;
-    q += cq;
+    float* dst = pl.cluster > 1 ? part : stat + 2 * threadIdx.x;
+    dst[0] = sx;
+    dst[1] = fmaf(2.f, su, sq);
   }
-  s = block_sum(s, red);
-  q = block_sum(q, red);
-  const float n = (float)((long)S * cg);
-  const float mean = s / n;
-  const float var = fmaxf(q / n - mean * mean, 0.f);
-  const float inv = rsqrtf(var + eps);
-  for (int c = threadIdx.x; c < cg; c += NTHREADS) {
+  if (pl.cluster > 1) {
+    cluster_arrive();
+    cluster_wait();  // every block's part is written
+    if (threadIdx.x == 0) {
+      float sx = 0.f, sq = 0.f;
+      for (int r = 0; r < pl.cluster; ++r) {
+        const float* pr = peer(part, r);
+        sx += pr[0];
+        sq += pr[1];
+      }
+      stat[0] = sx;
+      stat[1] = sq;
+    }
+    cluster_arrive();  // this block has read its peers
+  }
+  __syncthreads();
+
+  // 4. mean and inverse std of each pair, then A and B2 per channel
+  if (threadIdx.x < pl.pack) {
+    const float* t = ts + threadIdx.x * cg;
+    float tsum = 0.f, tsq = 0.f;
+    if (shift_code != 0)
+      for (int c = 0; c < cg; ++c) {
+        tsum += t[c];
+        tsq = fmaf(t[c], t[c], tsq);
+      }
+    const float n = (float)span;
+    const float mean = (stat[2 * threadIdx.x] + (float)S * tsum) / n;
+    const float ex2 = (stat[2 * threadIdx.x + 1] + (float)S * tsq) / n;
+    const float var = fmaxf(ex2 - mean * mean, 0.f);
+    stat[2 * threadIdx.x] = mean;
+    stat[2 * threadIdx.x + 1] = rsqrtf(var + eps);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < pl.pack * cg; i += NTHREADS) {
+    const int p = i / cg, c = i - p * cg;
+    const int g = (int)((pair0 + p) % G);
+    const float mean = stat[2 * p], inv = stat[2 * p + 1];
     const float a = inv * gamma[g * cg + c];
-    float b2 = beta[g * cg + c] - mean * a;
-    if (shift != nullptr) b2 += shift[row0 + c] * a;
-    A[c] = a;
-    B2[c] = b2;
+    A[i] = a;
+    B2[i] = fmaf(ts[i] - mean, a, beta[g * cg + c]);
   }
   __syncthreads();
 
-  const long base = row0 * (long)S;
-  const int span = cg * S;
-  const int end = min(span, (chunk + 1) * APPLY_CHUNK);
-  for (int i = chunk * APPLY_CHUNK + threadIdx.x * VEC; i < end; i += NTHREADS * VEC) {
-    const int c = i / S;  // S % VEC == 0: a vector never straddles channels
-    const float a = A[c], b2 = B2[c];
-    float v[VEC];
-    load_vec<VEC>(x + base + i, v);
+  // 5. y = act(x * A + B2) over the block's elements
+  const float* At = A + team * cg;
+  const float* Bt = B2 + team * cg;
+  auto apply = [&](const T* src, int from, int to) {
+    for (int i = from + tt * VEC; i < to; i += nt * VEC) {
+      const int c = i / S;  // S % VEC == 0: a vector never straddles channels
+      const float a = At[c], b2 = Bt[c];
+      float v[VEC];
+      load_vec<VEC>(src + i, v);
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = activate(fmaf(v[j], a, b2), act);
-    store_vec<VEC>(y + base + i, v);
-  }
+      for (int j = 0; j < VEC; ++j) v[j] = activate(fmaf(v[j], a, b2), act);
+      store_vec<VEC>(y + base + i, v);
+    }
+  };
+  apply(xt, lo, mid);
+  apply(xg, mid, hi);
+  if (pl.cluster > 1) cluster_wait();  // no peer reads this block's part any more
 }
 
-template <typename T>
-constexpr int full_vec() {
-  return 16 / (int)sizeof(T);
+template <typename T, int VEC>
+bool (&smem_flags())[MAX_DEVICES] {
+  static bool done[MAX_DEVICES] = {};
+  return done;
 }
 
-bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-template <typename T>
-int stats(const void* x, void* part, int batch, int C, int S, int splits, cudaStream_t st) {
-  constexpr int V = full_vec<T>();
-  const bool vec = S % V == 0 && aligned(x);
-  int chunk = (S + splits - 1) / splits;
-  if (vec) chunk = (chunk + V - 1) / V * V;
-  const long rows = (long)batch * C;
-  const long warps = rows * splits;
-  const long blocks = (warps + NTHREADS / 32 - 1) / (NTHREADS / 32);
+template <typename T, int VEC>
+int launch(const void* x, const float* gamma, const float* beta, const void* shift,
+           int shift_code, void* y, int G, long pairs, const Plan& pl, float eps, int act,
+           cudaStream_t st) {
+  auto kernel = md_group_norm_kernel<T, VEC>;
+  const int err = allow_smem(reinterpret_cast<const void*>(kernel), MAX_BLOCK_SMEM,
+                             smem_flags<T, VEC>());
+  if (err != 0) return err;
+  const long blocks = (pairs + pl.pack - 1) / pl.pack * pl.cluster;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  const T* xp = static_cast<const T*>(x);
-  float2* pp = static_cast<float2*>(part);
-  if (vec)
-    gn_stats_kernel<T, V><<<(unsigned)blocks, NTHREADS, 0, st>>>(xp, pp, rows, S, splits, chunk);
-  else
-    gn_stats_kernel<T, 1><<<(unsigned)blocks, NTHREADS, 0, st>>>(xp, pp, rows, S, splits, chunk);
-  return (int)cudaGetLastError();
+  return launch_cluster(kernel, (unsigned)blocks, NTHREADS, pl.bytes, pl.cluster, st,
+                        static_cast<const T*>(x), gamma, beta, shift, shift_code,
+                        static_cast<T*>(y), G, pairs, pl, eps, act);
 }
 
-template <typename T>
-int apply(const void* x, const void* part, const float* gamma, const float* beta,
-          const float* shift, void* y, int batch, int C, int G, int S, int splits, float eps,
-          int act, cudaStream_t st) {
-  constexpr int V = full_vec<T>();
-  const bool vec = S % V == 0 && aligned(x) && aligned(y);
-  const int cg = C / G;
-  const int chunks = (int)(((long)cg * S + APPLY_CHUNK - 1) / APPLY_CHUNK);
-  const long blocks = (long)batch * G * chunks;
-  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)cg * sizeof(float);
-  const T* xp = static_cast<const T*>(x);
-  const float2* pp = static_cast<const float2*>(part);
-  T* yp = static_cast<T*>(y);
-  if (vec)
-    gn_apply_kernel<T, V><<<(unsigned)blocks, NTHREADS, smem, st>>>(
-        xp, pp, gamma, beta, shift, yp, C, G, S, splits, chunks, eps, act);
-  else
-    gn_apply_kernel<T, 1><<<(unsigned)blocks, NTHREADS, smem, st>>>(
-        xp, pp, gamma, beta, shift, yp, C, G, S, splits, chunks, eps, act);
-  return (int)cudaGetLastError();
+template <typename T, int VEC>
+int max_clusters(const Plan& pl) {
+  auto kernel = md_group_norm_kernel<T, VEC>;
+  const int err = allow_smem(reinterpret_cast<const void*>(kernel), MAX_BLOCK_SMEM,
+                             smem_flags<T, VEC>());
+  if (err != 0) return -err;
+  return max_active_clusters(kernel, NTHREADS, pl.bytes, pl.cluster);
+}
+
+bool pow2_upto8(int n) { return n == 1 || n == 2 || n == 4 || n == 8; }
+
+// The checks of a plan; 0 if the kernel takes it. dtype 0 = fp32, 1 = bf16.
+int check_plan(int C, int G, int S, int pack, int cluster, int chunk, int held, int vec,
+               int dtype) {
+  if (C <= 0 || G <= 0 || S <= 0 || C % G != 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const int full = dtype == 0 ? 4 : 8;
+  if (vec != 1 && !(vec == full && S % vec == 0)) return (int)cudaErrorInvalidValue;
+  if ((long)(C / G) * S > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  const int span = C / G * S;
+  if (!pow2_upto8(pack) || !pow2_upto8(cluster) || (pack > 1 && cluster > 1))
+    return (int)cudaErrorInvalidValue;
+  if (chunk <= 0 || chunk % vec != 0 || (long)chunk * cluster < span ||
+      (cluster == 1 && chunk != span))
+    return (int)cudaErrorInvalidValue;
+  if (held < 0 || held > chunk || held % vec != 0 || (pack > 1 && held != span))
+    return (int)cudaErrorInvalidValue;
+  if ((long)pack * held * (dtype == 0 ? 4 : 2) > MAX_BLOCK_SMEM ||
+      (long)pack * (C / G) > MAX_BLOCK_SMEM / 12)
+    return (int)cudaErrorInvalidValue;
+  const Plan pl(C / G, S, pack, cluster, chunk, held, dtype == 0 ? 4 : 2);
+  if (pl.bytes > MAX_BLOCK_SMEM) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch 1. x (B, C, S), contiguous; dtype 0 = fp32, 1 = bf16. part receives
-// B * C * splits float2 partial sums (sum x, sum x^2), each row of S elements
-// cut into `splits` chunks. Returns cudaGetLastError().
-int md_group_norm_stats(const void* x, void* part, int batch, int C, int S, int splits,
-                        int dtype, void* stream) {
-  if (batch <= 0 || C <= 0 || S <= 0 || splits <= 0 || splits > S)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return stats<float>(x, part, batch, C, S, splits, st);
-  if (dtype == 1) return stats<bf16>(x, part, batch, C, S, splits, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// Launch 2. y = act((x + t - mean) * inv * gamma + beta) per group of C / G
-// channels, from the partials of launch 1 (same batch, C, S, splits, dtype).
-// gamma, beta (C,) fp32; shift (B, C) fp32 or null; act 0 none, 1 silu,
-// 2 relu; y like x. cg * S must stay below 2^31 and cg at most 4096 (its
-// coefficients live in shared memory).
-// Returns cudaGetLastError().
-int md_group_norm_apply(const void* x, const void* part, const void* gamma, const void* beta,
-                        const void* shift, void* y, int batch, int C, int G, int S, int splits,
-                        float eps, int act, int dtype, void* stream) {
-  if (batch <= 0 || C <= 0 || G <= 0 || S <= 0 || splits <= 0 || C % G != 0)
-    return (int)cudaErrorInvalidValue;
-  if ((long)(C / G) * S > 0x7fffffffL || C / G > 4096 || act < 0 || act > 2)
-    return (int)cudaErrorInvalidValue;
+// One launch: y = act((x + t - mean) * inv * gamma + beta) per group of C / G
+// channels of each sample. x, y (B, C, S) contiguous, dtype 0 = fp32, 1 =
+// bf16 (16-byte aligned where vec is 16 bytes of it: 4 fp32 or 8 bf16, S a
+// multiple of vec; else vec 1); gamma, beta (C,) fp32; shift (B, C),
+// shift_dtype 0 = none (null), 1 = fp32, 2 = bf16; act 0 none, 1 silu, 2
+// relu. The plan: pack pairs (sample, group) per block (1, 2, 4, 8) or a
+// cluster of `cluster` blocks per pair (1, 2, 4, 8), each taking `chunk`
+// elements of the pair's C / G * S (a multiple of vec; chunk = span for a
+// cluster of 1), the first `held` of them (a multiple of vec; all of a
+// packed span) held in shared memory and the rest read twice. Returns the
+// first CUDA error of the shared-memory raise or the launch.
+int md_group_norm(const void* x, const void* gamma, const void* beta, const void* shift,
+                  void* y, int batch, int C, int G, int S, int pack, int cluster, int chunk,
+                  int held, int vec, float eps, int act, int dtype, int shift_dtype,
+                  void* stream) {
+  int err = check_plan(C, G, S, pack, cluster, chunk, held, vec, dtype);
+  if (err == 0 && (batch <= 0 || act < 0 || act > ACT_RELU || shift_dtype < 0 ||
+                   shift_dtype > SHIFT_BF16 ||
+                   (shift_dtype != 0) != (shift != nullptr)))
+    err = (int)cudaErrorInvalidValue;
+  if (err != 0) return err;
+  const Plan pl(C / G, S, pack, cluster, chunk, held, dtype == 0 ? 4 : 2);
+  const long pairs = (long)batch * G;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(gamma);
   const float* b = static_cast<const float*>(beta);
-  const float* t = static_cast<const float*>(shift);
-  if (dtype == 0) return apply<float>(x, part, g, b, t, y, batch, C, G, S, splits, eps, act, st);
-  if (dtype == 1) return apply<bf16>(x, part, g, b, t, y, batch, C, G, S, splits, eps, act, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return vec == 1 ? launch<float, 1>(x, g, b, shift, shift_dtype, y, G, pairs, pl, eps, act, st)
+                    : launch<float, 4>(x, g, b, shift, shift_dtype, y, G, pairs, pl, eps, act, st);
+  return vec == 1 ? launch<bf16, 1>(x, g, b, shift, shift_dtype, y, G, pairs, pl, eps, act, st)
+                  : launch<bf16, 8>(x, g, b, shift, shift_dtype, y, G, pairs, pl, eps, act, st);
+}
+
+// Shared memory of one block of a plan (as gn_plan computes it); -1 if the
+// kernel does not take the plan.
+int md_group_norm_smem_bytes(int C, int G, int S, int pack, int cluster, int chunk,
+                             int held, int vec, int dtype) {
+  if (check_plan(C, G, S, pack, cluster, chunk, held, vec, dtype) != 0) return -1;
+  return Plan(C / G, S, pack, cluster, chunk, held, dtype == 0 ? 4 : 2).bytes;
+}
+
+// cudaOccupancyMaxActiveClusters for a plan: the clusters the card holds at
+// once; minus the CUDA error if the plan or the query is refused.
+int md_group_norm_max_clusters(int C, int G, int S, int pack, int cluster, int chunk,
+                               int held, int vec, int dtype) {
+  const int err = check_plan(C, G, S, pack, cluster, chunk, held, vec, dtype);
+  if (err != 0) return -err;
+  const Plan pl(C / G, S, pack, cluster, chunk, held, dtype == 0 ? 4 : 2);
+  if (dtype == 0) return vec == 1 ? max_clusters<float, 1>(pl) : max_clusters<float, 4>(pl);
+  return vec == 1 ? max_clusters<bf16, 1>(pl) : max_clusters<bf16, 8>(pl);
 }
 
 const char* md_cuda_error_string(int code) {

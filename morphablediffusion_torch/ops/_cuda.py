@@ -130,12 +130,16 @@ def build(kernels) -> None:
                 p.wait()
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's address, for an entry point's `ctypes.c_void_p` argument
+    (ctypes converts the int; a wrapper object would cost a microsecond a
+    pointer on the launch path)."""
+    return t.data_ptr()
 
 
-def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream of t's device, as a `c_void_p` argument."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_cuda(name: str, dtype: torch.dtype, *tensors: torch.Tensor,
@@ -157,6 +161,13 @@ def check_aligned(name: str, *tensors: torch.Tensor) -> None:
     needs."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: tensors must be 16-byte aligned (TMA)")
+
+
+def needs_autograd(*tensors) -> bool:
+    """Whether autograd records an op on these inputs (None for an absent
+    one): grad mode is on and one of them requires a gradient. A wrapper
+    that finds no need launches its kernel without an autograd Function."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def recompute_grads(fn, inputs, needs, grad_out):

@@ -45,9 +45,9 @@ KERNEL = _cuda.CudaKernel(  # K1, the WMMA design
 WGMMA_KERNEL = _cuda.CudaKernel(  # K1, the Hopper design
     "depth_attention_ctx_wgmma", "depth_attention_ctx.cu", "md_depth_attention_ctx_wgmma",
     _CTX_ARGS)
-DEPTH_KERNEL = _cuda.CudaKernel(
+DEPTH_KERNEL = _cuda.CudaKernel(  # K3
     "depth_attention", "depth_attention.cu", "md_depth_attention_fwd",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _reference(q, k, v, num_heads: int):
@@ -201,14 +201,68 @@ def _launch_ctx(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int, design: CtxDesign):
     return out
 
 
-def _pixels(S: int) -> int:
-    """Pixels per block of the depth-attention kernel."""
-    return 32 if S >= 32 else 16 if S >= 16 else 8
+# K3's plan (csrc/depth_attention.cu): blocks of K3_THREADS threads; a
+# cluster of up to K3_MAX_CLUSTER blocks splits a head's channels, each block
+# keeping at least K3_MIN_SLICE of them; a block's shared memory (its slices
+# of q, k, v and the D x P logits) stays within K3_MAX_SMEM, which holds
+# three blocks on an SM.
+K3_THREADS = 128
+K3_MAX_CLUSTER = 8
+K3_MIN_SLICE = 16
+K3_MAX_SMEM = 64 * 1024
+K3_TILES = (32, 16, 8)  # pixels per block where H*W > 64
+
+
+class DepthPlan(NamedTuple):
+    """How K3 runs one call: a cluster of `cluster` blocks per (sample,
+    head, tile of `tile` pixels), each owning head_dim / cluster channels;
+    `vec` elements per copy (8: 16 bytes); `blocks` in the grid; `smem`
+    bytes a block."""
+    cluster: int
+    tile: int
+    vec: int
+    blocks: int
+    smem: int
+
+
+def _k3_smem(cs: int, D: int, P: int) -> int:
+    """A block's shared memory (csrc/depth_attention.cu::Layout): k and v
+    slices, the q slice, the partial logits and the probabilities."""
+    up16 = lambda n: -(-n // 16) * 16
+    return 2 * up16(cs * D * P * 2) + up16(cs * P * 2) + 2 * up16(D * P * 4)
+
+
+def depth_plan(B: int, C: int, D: int, S: int, heads: int) -> DepthPlan:
+    """K3's plan for q (B, C, S) and k, v (B, C, D, S) in `heads` heads.
+
+    The cluster is the largest of 8, 4, 2 that divides head_dim and leaves
+    each block K3_MIN_SLICE channels or more, else 1. The tile is all of H*W
+    where that is at most 64 pixels (one contiguous run per channel), else
+    32 pixels, halved until the block fits K3_MAX_SMEM. Raises ValueError
+    for a shape the kernel cannot take."""
+    if heads < 1 or C % heads:
+        raise ValueError(f"depth_attention: {C} channels do not split into {heads} heads")
+    if min(B, D, S) < 1:
+        raise ValueError(f"depth_attention: empty shape B={B} D={D} H*W={S}")
+    hd = C // heads
+    cluster = next((c for c in (8, 4, 2) if c <= K3_MAX_CLUSTER and hd % c == 0
+                    and hd // c >= K3_MIN_SLICE), 1)
+    cs = hd // cluster
+    tiles = ([S] if S <= 64 else []) + [p for p in K3_TILES if p < S]
+    tile = next((p for p in tiles if _k3_smem(cs, D, p) <= K3_MAX_SMEM), None)
+    if tile is None:
+        raise ValueError(f"depth_attention: head_dim {hd} over D={D} depths does not fit "
+                         f"a block ({_k3_smem(cs, D, tiles[-1])} B of shared memory at "
+                         f"{tiles[-1]} pixels > {K3_MAX_SMEM})")
+    vec = 8 if S % 8 == 0 and tile % 8 == 0 else 1
+    return DepthPlan(cluster, tile, vec, B * heads * -(-S // tile) * cluster,
+                     _k3_smem(cs, D, tile))
 
 
 def attention_kernel(q, k, v, num_heads: int):
-    """Launch the depth-attention kernel (no autograd): q (B, C, H, W);
-    k, v (B, C, D, H, W); contiguous bf16 on one card, else this raises."""
+    """Launch the depth-attention kernel once (no autograd): q (B, C, H, W);
+    k, v (B, C, D, H, W); contiguous bf16 on one card (16-byte aligned where
+    the plan copies 16 bytes at a time), else this raises."""
     _cuda.check_cuda("depth_attention", torch.bfloat16, q, k, v)
     B, C, H, W = q.shape
     D = k.shape[2]
@@ -216,13 +270,13 @@ def attention_kernel(q, k, v, num_heads: int):
         raise ValueError(f"depth_attention: bad shapes {q.shape} {k.shape} "
                          f"{v.shape} for {num_heads} heads")
     S, hd = H * W, C // num_heads
-    P = _pixels(S)
-    if hd > 64 * (128 // P):
-        raise ValueError(f"depth_attention: head_dim {hd} > {64 * (128 // P)} "
-                         f"at H*W={S}")
+    plan = depth_plan(B, C, D, S, num_heads)
+    if plan.vec > 1:
+        _cuda.check_aligned("depth_attention", q, k, v)
     out = torch.empty_like(q)
     DEPTH_KERNEL.launch(_cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out),
-                        B, C, D, S, num_heads, P, hd**-0.5, _cuda.stream_of(q))
+                        B, C, D, S, num_heads, plan.tile, plan.cluster, plan.vec, hd**-0.5,
+                        _cuda.stream_of(q))
     return out
 
 

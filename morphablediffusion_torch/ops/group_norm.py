@@ -8,36 +8,126 @@ Hopper port is `csrc/group_norm.cu`. Layout is channels-first: x (B, C,
 clamped at 0; the output is cast back to x's dtype.
 
 `group_norm` and `group_norm_shifted` take the plain version, `_reference`,
-for a tensor on the CPU. For a CUDA tensor they launch K4 or raise, inside a
-`torch.autograd.Function` whose backward recomputes through `_reference`
-(the JAX package's custom VJP `_bwd` does the same) and returns gradients for
-x, gamma, beta and the shift. Every GroupNorm of the port goes through here.
+for a tensor on the CPU. For a CUDA tensor they launch K4 or raise: one
+launch per call, planned by shape and dtype (`gn_plan`). Where a gradient is
+needed, the launch sits inside a `torch.autograd.Function` whose backward
+recomputes through `_reference` (the JAX package's custom VJP `_bwd` does
+the same) and returns gradients for x, gamma, beta and the shift; where none
+is (inference, or no input that requires one), the kernel is called
+directly. Every GroupNorm of the port goes through here.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from morphablediffusion_torch.ops import _cuda
 
-STATS_KERNEL = _cuda.CudaKernel(
-    "group_norm_stats", "group_norm.cu", "md_group_norm_stats",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-APPLY_KERNEL = _cuda.CudaKernel(
-    "group_norm_apply", "group_norm.cu", "md_group_norm_apply",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-KERNELS = (STATS_KERNEL, APPLY_KERNEL)  # one call launches each once
+KERNEL = _cuda.CudaKernel(
+    "group_norm", "group_norm.cu", "md_group_norm",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+KERNELS = (KERNEL,)  # one call launches it once
 
-# elements of a row (one sample's channel) that one warp of the statistics
-# launch sums; longer rows are cut into ceil(S / STATS_CHUNK) chunks
-STATS_CHUNK = 4096
 _ACT_CODE = {None: 0, "silu": 1, "relu": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SHIFT_CODE = {torch.float32: 1, torch.bfloat16: 2}
+
+# The plan of a launch (csrc/group_norm.cu::Plan). A block has GN_THREADS
+# threads. A (sample, group) pair's span of cg*S elements goes to a cluster
+# of up to GN_MAX_CLUSTER blocks, enough that each takes at most
+# GN_TARGET_BYTES of it, and more (down to GN_MIN_CHUNK_BYTES a block) while
+# the grid has fewer than GN_FILL blocks. A block holds up to
+# GN_MAX_HELD_BYTES of its share in shared memory (six blocks an SM) and
+# reads the rest twice: on the H100, blocks that held 64 or 128 KiB ran
+# slower than blocks that held 32 KiB and read the rest twice
+# (chip_smoke.py::gn_alternatives times them; PERF.md). Spans too small to
+# give every thread of a block a vector go several to a block.
+GN_THREADS = 256
+GN_MAX_CLUSTER = 8
+GN_TARGET_BYTES = 32 * 1024
+GN_MIN_CHUNK_BYTES = 4 * 1024
+GN_MAX_HELD_BYTES = 32 * 1024
+GN_FILL = 132  # a block for each of the H100's 132 SMs
+GN_MAX_PACK = 8    # pairs per block: one warp each at most
+GN_RED_BYTES = 256  # the kernel's reduction scratch
+GN_MAX_TABLE = 232448 // 12  # per-channel entries (shift, A, B2) a block may hold
+
+
+class GnPlan(NamedTuple):
+    """How K4 runs one call: `cluster` blocks per (sample, group) pair, or
+    `pack` pairs per block; `chunk` elements of a pair's span per block, of
+    which a block holds the first `held` in shared memory (and reads the
+    rest twice); `vec` elements per load; `blocks` in the grid; `smem`
+    bytes a block."""
+    cluster: int
+    pack: int
+    chunk: int
+    held: int
+    vec: int
+    blocks: int
+    smem: int
+
+    @property
+    def resident(self) -> bool:
+        """Whether x is read from device memory once."""
+        return self.held == self.chunk
+
+
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _gn_smem(cg: int, pack: int, held: int, esize: int) -> int:
+    """A block's shared memory (csrc/group_norm.cu::Plan): the elements it
+    holds, the shift, A and B2 of its channels, the reduction scratch."""
+    return _up16(pack * held * esize) + 3 * _up16(pack * cg * 4) + GN_RED_BYTES
+
+
+@functools.lru_cache(maxsize=1024)
+def gn_plan(shape, dtype: torch.dtype, num_groups: int, aligned: bool = True) -> GnPlan:
+    """K4's plan for x of `shape` (B, C, ...) and `dtype` in `num_groups`
+    groups; `aligned`: x starts 16-byte aligned (else every load is one
+    element). Raises ValueError for what the kernel cannot take. Cached:
+    the port makes a few dozen shapes, each thousands of times."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"group_norm: the kernel takes bfloat16 or float32, got {dtype}")
+    if len(shape) < 2 or min(shape) < 1:
+        raise ValueError(f"group_norm: x must be a non-empty (B, C, ...), got {tuple(shape)}")
+    B, C = shape[:2]
+    _check_groups(C, num_groups)
+    S = math.prod(shape[2:])
+    cg = C // num_groups
+    span, pairs = cg * S, B * num_groups
+    esize = 4 if dtype == torch.float32 else 2
+    if span >= 2**31:
+        raise ValueError(f"group_norm: a group's {span} elements exceed 2^31")
+    vec = 16 // esize if aligned and S % (16 // esize) == 0 else 1
+    pack = 1
+    while pack < GN_MAX_PACK and span * pack < GN_THREADS * vec:
+        pack *= 2
+    cluster = 1
+    if pack == 1:
+        span_bytes = span * esize
+        while cluster < GN_MAX_CLUSTER and (
+                span_bytes > cluster * GN_TARGET_BYTES
+                or (pairs * cluster < GN_FILL
+                    and span_bytes >= 2 * cluster * GN_MIN_CHUNK_BYTES)):
+            cluster *= 2
+    chunk = -(-span // (cluster * vec)) * vec
+    held = chunk if pack > 1 else min(chunk, GN_MAX_HELD_BYTES // (esize * vec) * vec)
+    if pack * cg > GN_MAX_TABLE:
+        raise ValueError(f"group_norm: {cg} channels per group exceed the kernel's "
+                         f"{GN_MAX_TABLE}")
+    return GnPlan(cluster, pack, chunk, held, vec, -(-pairs // pack) * cluster,
+                  _gn_smem(cg, pack, held, esize))
+
 
 _ACTS = {
     None: lambda x: x,
@@ -91,11 +181,11 @@ def _reference(x, shift, gamma, beta, num_groups: int = 32, epsilon: float = 1e-
 
 
 def group_norm_kernel(x, shift, gamma, beta, num_groups: int, epsilon: float,
-                      act: str | None):
-    """Launch K4 (statistics, then apply; no autograd). x (B, C, ...)
-    contiguous bf16 or fp32; gamma, beta (C,) fp32; shift (B, C) of any
-    float dtype (cast to fp32 here) or None; all on one card, else this
-    raises. Returns y like x."""
+                      act: str | None, plan: GnPlan | None = None):
+    """Launch K4 once (no autograd). x (B, C, ...) contiguous bf16 or fp32;
+    gamma, beta (C,) fp32; shift (B, C) contiguous bf16 or fp32, read as
+    given, or None; all on one card, else this raises. `plan` defaults to
+    `gn_plan`'s (chip_smoke.py also times others). Returns y like x."""
     if x.dtype not in _DTYPE_CODE:
         raise ValueError(f"group_norm: the kernel takes bfloat16 or float32, got {x.dtype}")
     if x.dim() < 2:
@@ -103,23 +193,24 @@ def group_norm_kernel(x, shift, gamma, beta, num_groups: int, epsilon: float,
     _cuda.check_cuda("group_norm", x.dtype, x)
     B, C = x.shape[:2]
     _check_groups(C, num_groups)
-    params = [gamma, beta]
+    _cuda.check_cuda("group_norm", torch.float32, gamma, beta, device=x.device)
     if shift is not None:
-        shift = shift.float().contiguous()
-        params.append(shift)
-    _cuda.check_cuda("group_norm", torch.float32, *params, device=x.device)
+        if shift.dtype not in _SHIFT_CODE:
+            raise ValueError(f"group_norm: the shift must be bfloat16 or float32, "
+                             f"got {shift.dtype}")
+        _cuda.check_cuda("group_norm", shift.dtype, shift, device=x.device)
     if (gamma.shape != (C,) or beta.shape != (C,)
             or (shift is not None and shift.shape != (B, C))):
         raise ValueError(f"group_norm: gamma, beta must be ({C},) and shift ({B}, {C})")
-    S = math.prod(x.shape[2:])
-    splits = -(-S // STATS_CHUNK)
-    part = torch.empty((B * C * splits, 2), dtype=torch.float32, device=x.device)
+    if plan is None:
+        plan = gn_plan(x.shape, x.dtype, num_groups, aligned=x.data_ptr() % 16 == 0)
     y = torch.empty_like(x)
-    stream, dt = _cuda.stream_of(x), _DTYPE_CODE[x.dtype]
-    STATS_KERNEL.launch(_cuda.ptr(x), _cuda.ptr(part), B, C, S, splits, dt, stream)
-    APPLY_KERNEL.launch(_cuda.ptr(x), _cuda.ptr(part), _cuda.ptr(gamma), _cuda.ptr(beta),
-                        None if shift is None else _cuda.ptr(shift), _cuda.ptr(y),
-                        B, C, num_groups, S, splits, epsilon, _ACT_CODE[act], dt, stream)
+    KERNEL.launch(_cuda.ptr(x), _cuda.ptr(gamma), _cuda.ptr(beta),
+                  None if shift is None else _cuda.ptr(shift), _cuda.ptr(y),
+                  B, C, num_groups, math.prod(x.shape[2:]), plan.pack, plan.cluster,
+                  plan.chunk, plan.held, plan.vec, epsilon, _ACT_CODE[act],
+                  _DTYPE_CODE[x.dtype], 0 if shift is None else _SHIFT_CODE[shift.dtype],
+                  _cuda.stream_of(x))
     return y
 
 
@@ -155,11 +246,14 @@ def group_norm_shifted(x, shift, gamma, beta, num_groups: int = 32,
     x + shift. x (B, C, ...); shift (B, C) or None; gamma, beta (C,).
 
     CPU tensors take `_reference`; CUDA tensors the K4 kernel (x contiguous
-    bf16 or fp32, gamma and beta fp32, else this raises), differentiable
-    through `_GroupNorm`."""
+    bf16 or fp32, gamma and beta fp32, the shift bf16 or fp32, else this
+    raises): through `_GroupNorm` where autograd needs a gradient, else
+    launched directly."""
     if not x.is_cuda:
         return _reference(x, shift, gamma, beta, num_groups, epsilon, act)
-    return _GroupNorm.apply(x, shift, gamma, beta, num_groups, epsilon, act)
+    if _cuda.needs_autograd(x, shift, gamma, beta):
+        return _GroupNorm.apply(x, shift, gamma, beta, num_groups, epsilon, act)
+    return group_norm_kernel(x, shift, gamma, beta, num_groups, epsilon, act)
 
 
 def group_norm(x, gamma, beta, num_groups: int = 32, epsilon: float = 1e-5,

@@ -199,22 +199,80 @@ def test_flash_attention_reads_nothing_past_its_tensors(dev):
     assert _rel(out, fa.attention_reference(q, k, v, heads)) <= REL_L2
 
 
-@pytest.mark.parametrize("B,W,D,C,heads", [
-    (8, 4, 6, 1024, 4),     # the training path's W=4 middle block, head_dim 256
-    (2, 32, 48, 128, 4),    # the other plain-path shapes
-    (2, 16, 24, 256, 4),
-    (2, 8, 12, 512, 4),
-    (3, 5, 7, 96, 3),       # ragged pixel tile, odd depth
+@pytest.mark.parametrize("B,H,W,D,C,heads,cluster", [
+    (8, 4, 4, 6, 1024, 4, 8),     # the training path's W=4 middle block, head_dim 256
+    (8, 8, 8, 12, 512, 4, 8),     # the other plain-path widths at B=8
+    (8, 16, 16, 24, 256, 4, 4),
+    (8, 32, 32, 48, 128, 4, 2),
+    (2, 32, 32, 48, 128, 4, 2),
+    (2, 16, 16, 24, 256, 4, 4),
+    (2, 8, 8, 12, 512, 4, 8),
+    (3, 5, 5, 7, 96, 3, 2),       # H*W = 25: one ragged tile, scalar copies, odd depth
+    (2, 6, 12, 9, 128, 4, 2),     # H*W = 72: 16-byte copies, a last tile of 8 of 32 pixels
+    (2, 10, 10, 3, 192, 3, 4),    # H*W = 100: scalar copies, a ragged last tile
+    (2, 4, 4, 6, 64, 4, 1),       # head_dim 16: no cluster
+    (1, 8, 8, 1, 256, 2, 8),      # D = 1
 ])
-def test_depth_attention_kernel(dev, B, W, D, C, heads):
+def test_depth_attention_kernel(dev, B, H, W, D, C, heads, cluster):
+    """One launch of the plan `depth_plan` picks (its cluster asserted),
+    within REL_L2 of the plain version, with and without a gradient."""
+    assert da.depth_plan(B, C, D, H * W, heads).cluster == cluster
     g = torch.Generator(dev).manual_seed(4)
-    q, k, v = _randn(g, B, C, W, W), _randn(g, B, C, D, W, W), _randn(g, B, C, D, W, W)
-    before = da.DEPTH_KERNEL.launches
+    q, k, v = _randn(g, B, C, H, W), _randn(g, B, C, D, H, W), _randn(g, B, C, D, H, W)
+    want = da._reference(q, k, v, heads)
+    for grad in (False, True):
+        leaves = [t.detach().requires_grad_(grad) for t in (q, k, v)]
+        before = da.DEPTH_KERNEL.launches
+        with torch.set_grad_enabled(grad):
+            out = da.depth_attention(*leaves, heads)
+        torch.cuda.synchronize()
+        assert da.DEPTH_KERNEL.launches == before + 1
+        assert out.shape == q.shape and out.dtype == torch.bfloat16
+        assert _rel(out, want) <= REL_L2
+
+
+def test_depth_attention_is_deterministic(dev):
+    """The cluster adds its partial logits in rank order: two launches on
+    the same inputs agree bit for bit."""
+    g = torch.Generator(dev).manual_seed(13)
+    q, k, v = _randn(g, 8, 1024, 4, 4), _randn(g, 8, 1024, 6, 4, 4), _randn(g, 8, 1024, 6, 4, 4)
+    assert torch.equal(da.attention_kernel(q, k, v, 4), da.attention_kernel(q, k, v, 4))
+
+
+@pytest.mark.parametrize("H,W,D,C,heads", [(4, 4, 6, 1024, 4), (5, 5, 7, 96, 3),
+                                           (6, 12, 9, 128, 4)])
+def test_depth_attention_reads_nothing_past_its_tensors(dev, H, W, D, C, heads):
+    """q, k and v at the start of buffers whose tail is NaN: the copies of
+    the last sample's last channels, and the ragged tiles, stop at each
+    tensor's last element."""
+    g = torch.Generator(dev).manual_seed(14)
+
+    def padded(t):
+        buf = torch.full((t.numel() + 4096,), float("nan"), device=dev, dtype=t.dtype)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(t.shape)
+
+    q, k, v = (padded(t) for t in (_randn(g, 2, C, H, W), _randn(g, 2, C, D, H, W),
+                                   _randn(g, 2, C, D, H, W)))
     out = da.depth_attention(q, k, v, heads)
     torch.cuda.synchronize()
-    assert da.DEPTH_KERNEL.launches == before + 1
-    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out).all()
     assert _rel(out, da._reference(q, k, v, heads)) <= REL_L2
+
+
+def test_depth_attention_plan_matches_the_kernel(dev):
+    """The kernel's shared-memory layout is the plan's at every width, and
+    the card holds at least one cluster of each plan."""
+    import ctypes
+
+    da.DEPTH_KERNEL._load()
+    lib = ctypes.CDLL(str(da.DEPTH_KERNEL.lib_path()))
+    for B, C, D, S, heads in [(8, 1024, 6, 16, 4), (8, 512, 12, 64, 4), (8, 256, 24, 256, 4),
+                              (8, 128, 48, 1024, 4), (3, 96, 7, 25, 3)]:
+        plan = da.depth_plan(B, C, D, S, heads)
+        assert lib.md_depth_attention_smem_bytes(C, D, heads, plan.tile, plan.cluster) == plan.smem
+        assert lib.md_depth_attention_max_clusters(C, D, S, heads, plan.tile, plan.cluster,
+                                                   plan.vec) >= 1
 
 
 def _bwd_rel(got, want, floor):
@@ -297,22 +355,25 @@ def test_flash_attention_backward_raises_on_misaligned_dout(dev):
 
 @pytest.mark.parametrize("shape,groups,act,eps", [
     ((32, 128, 32, 32), 8, "relu", 1e-5),         # DepthTransformer at width 32
-    ((32, 1280, 4, 4), 32, "silu", 1e-5),         # the UNet's bottom, S = 16
-    ((16, 64, 48, 32, 32), 8, "silu", 1e-5),      # frustum net, 3-D
-    ((2, 128, 256, 256), 32, "silu", 1e-6),       # VAE decoder, rows split
+    ((32, 1280, 4, 4), 32, "silu", 1e-5),         # the UNet's bottom, S = 16: packed
+    ((16, 64, 48, 32, 32), 8, "silu", 1e-5),      # frustum net, 3-D: clusters of 8, part held
+    ((2, 128, 256, 256), 32, "silu", 1e-6),       # VAE decoder, 512 KiB spans (bf16)
     ((32, 16, 32, 32), 8, "silu", 1e-5),          # target encoder, cg = 2
     ((1, 512), 8, "relu", 1e-5),                  # zero-context row, S = 1
     ((3, 40, 5, 7), 4, None, 1e-6),               # S not a multiple of 8
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shifted", [False, True])
-def test_group_norm_kernel(dev, shape, groups, act, eps, dtype, shifted):
+@pytest.mark.parametrize("shift_dtype", [None, torch.bfloat16, torch.float32])
+def test_group_norm_kernel(dev, shape, groups, act, eps, dtype, shift_dtype):
+    """One launch per call, within REL_L2 (bf16) or 1e-5 (fp32) of the plain
+    version, the shift read as given (none, bf16, fp32)."""
     g = torch.Generator(dev).manual_seed(7)
     B, C = shape[:2]
     x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
     gamma = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
     beta = 0.1 * torch.randn(C, generator=g, device=dev)
-    shift = torch.randn(B, C, generator=g, device=dev).to(dtype) if shifted else None
+    shift = (None if shift_dtype is None
+             else torch.randn(B, C, generator=g, device=dev).to(shift_dtype))
     before = [k.launches for k in gn.KERNELS]
     out = gn.group_norm_shifted(x, shift, gamma, beta, groups, eps, act)
     torch.cuda.synchronize()
@@ -320,6 +381,101 @@ def test_group_norm_kernel(dev, shape, groups, act, eps, dtype, shifted):
     assert out.shape == x.shape and out.dtype == dtype
     want = gn._reference(x, shift, gamma, beta, groups, eps, act)
     assert _rel(out, want) <= (REL_L2 if dtype == torch.bfloat16 else 1e-5)
+
+
+# shapes that take each cluster size, packing, and a share of a span too
+# large to hold, part of it read twice (plan asserted): (shape, dtype,
+# groups, (cluster, pack, resident))
+GN_PLANS = [
+    ((16, 64, 64, 64), torch.bfloat16, 32, (1, 1, True)),       # 16 KiB spans, 512 blocks
+    ((4, 512, 16, 16), torch.bfloat16, 32, (2, 1, True)),
+    ((8, 128, 128, 128), torch.bfloat16, 32, (4, 1, True)),     # 128 KiB spans
+    ((4, 128, 32, 32), torch.bfloat16, 8, (8, 1, True)),        # 32 KiB spans, 32 pairs
+    ((2, 64, 48, 32, 32), torch.bfloat16, 8, (8, 1, False)),    # 96 KiB a block, 32 held
+    ((2, 256, 256, 256), torch.float32, 32, (8, 1, False)),     # 256 KiB a block, 32 held
+    ((8, 1280, 4, 4), torch.float32, 32, (1, 2, True)),         # packed, 2 pairs a block
+    ((4, 1280, 4, 4), torch.bfloat16, 32, (1, 4, True)),        # packed, 4
+    ((3, 64, 1), torch.float32, 32, (1, 8, True)),              # packed, 8 (one warp a pair)
+]
+
+
+@pytest.mark.parametrize("shape,dtype,groups,plan", GN_PLANS)
+@pytest.mark.parametrize("act", [None, "silu", "relu"])
+def test_group_norm_every_plan(dev, shape, dtype, groups, plan, act):
+    """Each kind of plan, with a shift, against the plain version; the
+    cluster's fixed-order reduction gives the same bits twice."""
+    p = gn.gn_plan(shape, dtype, groups)
+    assert (p.cluster, p.pack, p.resident) == plan
+    g = torch.Generator(dev).manual_seed(15)
+    B, C = shape[:2]
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(C, generator=g, device=dev)
+    beta = 0.1 * torch.randn(C, generator=g, device=dev)
+    shift = torch.randn(B, C, generator=g, device=dev).to(dtype)
+    out = gn.group_norm_kernel(x, shift, gamma, beta, groups, 1e-5, act)
+    assert torch.equal(out, gn.group_norm_kernel(x, shift, gamma, beta, groups, 1e-5, act))
+    want = gn._reference(x, shift, gamma, beta, groups, 1e-5, act)
+    assert _rel(out, want) <= (REL_L2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_group_norm_plan_matches_the_kernel(dev):
+    """The kernel's shared-memory layout is the plan's for every kind of
+    plan, and the card holds at least one cluster of each."""
+    import ctypes
+
+    gn.KERNEL._load()
+    lib = ctypes.CDLL(str(gn.KERNEL.lib_path()))
+    for shape, dtype, groups, _ in GN_PLANS + [((16, 128, 256, 256), torch.bfloat16, 32, 0)]:
+        p = gn.gn_plan(shape, dtype, groups)
+        args = (shape[1], groups, int(torch.tensor(shape[2:]).prod()), p.pack, p.cluster,
+                p.chunk, p.held, p.vec, gn._DTYPE_CODE[dtype])
+        assert lib.md_group_norm_smem_bytes(*args) == p.smem
+        assert lib.md_group_norm_max_clusters(*args) >= 1
+
+
+def test_group_norm_reads_nothing_past_its_tensors(dev):
+    """x, gamma, beta and the shift at the start of buffers whose tail is
+    NaN, for a packed plan whose last block has fewer pairs than it packs
+    and for a cluster plan: nothing past the last element is read."""
+    g = torch.Generator(dev).manual_seed(16)
+
+    def padded(t):
+        buf = torch.full((t.numel() + 4096,), float("nan"), device=dev, dtype=t.dtype)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(t.shape)
+
+    for shape, groups in (((3, 1280, 4, 4), 32), ((2, 64, 48, 32, 32), 8)):
+        B, C = shape[:2]
+        x = padded(_randn(g, *shape))
+        gamma = padded(1.0 + 0.1 * torch.randn(C, generator=g, device=dev))
+        beta = padded(0.1 * torch.randn(C, generator=g, device=dev))
+        shift = padded(_randn(g, B, C))
+        out = gn.group_norm_shifted(x, shift, gamma, beta, groups, 1e-5, "silu")
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert _rel(out, gn._reference(x, shift, gamma, beta, groups, 1e-5, "silu")) <= REL_L2
+
+
+def test_group_norm_takes_a_misaligned_x_and_skips_autograd_without_grad(dev):
+    """x 8 bytes off 16-byte alignment (a contiguous view can be) is loaded
+    an element at a time; without a gradient to record the wrapper launches
+    the kernel directly (no grad_fn), with one through the autograd
+    Function; one launch either way."""
+    g = torch.Generator(dev).manual_seed(17)
+    x = _randn(g, 4, 64, 16, 16)
+    shifted = torch.empty(x.numel() + 4, device=dev, dtype=x.dtype)[4:].view(x.shape)
+    shifted.copy_(x)
+    gamma = (1.0 + 0.1 * torch.randn(64, generator=g, device=dev)).requires_grad_(True)
+    beta = torch.zeros(64, device=dev)
+    want = gn._reference(x, None, gamma, beta, 32, 1e-5, "silu")
+    for grad in (False, True):
+        before = gn.KERNEL.launches
+        with torch.set_grad_enabled(grad):
+            out = gn.group_norm_shifted(shifted, None, gamma, beta, 32, 1e-5, "silu")
+        torch.cuda.synchronize()
+        assert gn.KERNEL.launches == before + 1
+        assert (out.grad_fn is not None) == grad
+        assert _rel(out, want) <= REL_L2
 
 
 def test_gradients_reach_every_input_through_each_wrapper(dev):
@@ -361,9 +517,9 @@ def test_gradients_reach_every_input_through_each_wrapper(dev):
     x = _randn(g, 2, 64, 8, 8)
     four = [x, _randn(g, 2, 64), 1.0 + 0.1 * torch.randn(64, generator=g, device=dev),
             0.1 * torch.randn(64, generator=g, device=dev)]
-    before = gn.APPLY_KERNEL.launches
+    before = gn.KERNEL.launches
     out, got = grads(lambda *t: gn.group_norm_shifted(*t, 32, 1e-5, "silu"), four)
-    assert gn.APPLY_KERNEL.launches == before + 1
+    assert gn.KERNEL.launches == before + 1
     assert all(t is not None and t.float().abs().sum() > 0 for t in got)
     assert _rel(out, gn._reference(*four, 32, 1e-5, "silu")) <= REL_L2
 
@@ -397,8 +553,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     k = _randn(g, 2, 64, 6, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
         da.depth_attention(_randn(g, 2, 64, 4, 4), k.transpose(3, 4), k, 4)
-    with pytest.raises(ValueError, match="head_dim"):
-        da.depth_attention(_randn(g, 1, 2048, 6, 6), *(_randn(g, 1, 2048, 2, 6, 6),) * 2, 1)
+    with pytest.raises(ValueError, match="head_dim"):  # no tile of it fits a block
+        da.depth_attention(_randn(g, 1, 2048, 8, 8), *(_randn(g, 1, 2048, 64, 8, 8),) * 2, 1)
+    q4, k4 = _randn(g, 2, 64, 4, 4), _randn(g, 2, 64, 6, 4, 4)
+    shifted = torch.empty(k4.numel() + 4, device=dev, dtype=k4.dtype)[4:].view(k4.shape)
+    shifted.copy_(k4)
+    before = da.DEPTH_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):  # 16-byte copies
+        da.depth_attention(q4, shifted, k4, 4)
+    assert da.DEPTH_KERNEL.launches == before
     x, gamma, beta = _randn(g, 2, 64, 8, 8), torch.ones(64, device=dev), torch.zeros(64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         gn.group_norm(x.transpose(2, 3), gamma, beta, 32)
@@ -410,3 +573,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         gn.group_norm(x, gamma.bfloat16(), beta, 32)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         gn.group_norm(x.half(), gamma, beta, 32)
+    with pytest.raises(ValueError, match="shift must be bfloat16 or float32"):
+        gn.group_norm_shifted(x, _randn(g, 2, 64).half(), gamma, beta, 32)
+    with pytest.raises(ValueError, match="shift"):
+        gn.group_norm_shifted(x, _randn(g, 2, 32), gamma, beta, 32)

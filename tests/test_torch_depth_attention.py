@@ -245,3 +245,49 @@ def test_autograd_functions_backward_through_the_plain_versions(rng, monkeypatch
     plain = grads(lambda *t: t_da._reference(*t, 4), qkv)
     for got, want in zip(via_fn, plain):
         assert_close(got, want, 1e-6)
+
+
+# K3's plan (`depth_plan`) at the training path's four widths (B=8, 4 heads,
+# C = 2 Cc, D halving with W) and at other shapes the kernel takes
+K3_SHAPES = [(8, 1024, 6, 16, 4), (8, 512, 12, 64, 4), (8, 256, 24, 256, 4),
+             (8, 128, 48, 1024, 4), (16, 1024, 6, 16, 4), (3, 96, 7, 25, 3),
+             (2, 64, 6, 16, 4), (1, 32, 5, 24, 2), (2, 128, 9, 72, 4), (1, 2048, 2, 36, 1),
+             (4, 384, 6, 100, 3)]
+
+
+@pytest.mark.parametrize("B,C,D,S,heads", K3_SHAPES)
+def test_depth_plan_tiles_channels_and_pixels(B, C, D, S, heads):
+    """The cluster is at most 8 and divides the grid; its blocks' channel
+    slices tile head_dim exactly; the tiles cover H*W; a block's shared
+    memory stays within the plan's limit; 16-byte copies only where rows
+    and tiles are multiples of 8 pixels."""
+    plan = t_da.depth_plan(B, C, D, S, heads)
+    hd = C // heads
+    assert plan.cluster in (1, 2, 4, 8) and plan.blocks % plan.cluster == 0
+    assert hd % plan.cluster == 0
+    cs = hd // plan.cluster
+    assert cs >= min(hd, t_da.K3_MIN_SLICE)
+    assert [r * cs for r in range(plan.cluster + 1)][-1] == hd
+    tiles = -(-S // plan.tile)
+    assert 1 <= plan.tile <= S and (tiles - 1) * plan.tile < S <= tiles * plan.tile
+    assert plan.blocks == B * heads * tiles * plan.cluster
+    assert plan.smem == t_da._k3_smem(cs, D, plan.tile) <= t_da.K3_MAX_SMEM
+    assert plan.vec == (8 if S % 8 == 0 and plan.tile % 8 == 0 else 1)
+
+
+def test_depth_plan_of_the_training_shape():
+    """W=4, B=8, head_dim 256: clusters of 8 blocks of 32 channels, one
+    tile of all 16 pixels, 8 x 4 x 8 = 256 blocks (one block per head and tile
+    would be 32)."""
+    assert tuple(t_da.depth_plan(8, 1024, 6, 16, 4)) == (8, 16, 8, 256, 14080)
+
+
+@pytest.mark.parametrize("B,C,D,S,heads", [
+    (2, 128, 6, 16, 3),      # 128 channels do not split into 3 heads
+    (1, 2048, 64, 64, 1),    # head_dim 2048 over 64 depths: no tile fits a block
+    (0, 128, 6, 16, 4),      # empty batch
+    (2, 128, 0, 16, 4),      # no depth
+])
+def test_depth_plan_refuses_what_the_kernel_cannot_take(B, C, D, S, heads):
+    with pytest.raises(ValueError, match="depth_attention"):
+        t_da.depth_plan(B, C, D, S, heads)

@@ -53,4 +53,4 @@ def test_decoded_images(slice_run):
 
 
 def test_cpu_run_launches_no_kernel(slice_run):
-    assert slice_run["launches"] == (0,) * 5  # K1, K3, K2 and K4's two
+    assert slice_run["launches"] == (0,) * 4  # K1, K3, K2 and K4
