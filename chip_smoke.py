@@ -22,7 +22,11 @@ Phases (any failure exits non-zero):
      `backward_dkv_reference` and `backward_dq_reference`). K1 logs the
      design that `ctx_design` picks at each shape (its G and grid) and, at
      the Hopper design's shapes, holds and times every other design the
-     shape could take (the other G, the WMMA design). K1, K2, K2-dkv,
+     shape could take (the other G, the WMMA design); at the cluster
+     design's (W=8, W=4) it logs the plan (cluster, rows a tile, grid, ring
+     stages, shared memory, which must equal the kernel's, and the clusters
+     the card holds at once) and holds and times the WMMA design beside it,
+     and its ptxas resources are read in phase 1 (any spill fails). K1, K2, K2-dkv,
      K2-dq, K3, SDPA and its backward are also timed on the device alone
      (torch.profiler), and the registers, shared memory and spill bytes of
      K1's Hopper design, of the three K2 kernels and (in phase 1) of K3's
@@ -45,7 +49,8 @@ Phases (any failure exits non-zero):
      50 DDIM steps, coarse mesh voxels), seeded weights cast for serving; one
      warm-up run, then one timed run with every launch counter set to 0
      just before it: the depth-context kernel must launch 500 times (350
-     in its Hopper design, W=32 and W=16; 150 in the WMMA one), the flash
+     in its Hopper design, W=32 and W=16; 150 in the cluster design, W=8
+     and W=4; 0 in the WMMA one), the flash
      kernel 250 times and K4 once per GroupNorm (5 902)
      call of the census, and the images must be finite and not constant;
   5. profile one denoising step with torch.profiler: the device's busy and
@@ -394,8 +399,7 @@ def k1_kernel(s):
     """The CudaKernel of the K1 design that `ctx_design` picks for shape s."""
     from morphablediffusion_torch.ops import depth_attention as da
 
-    d = da.ctx_design(s["B"], s["W"] ** 2, s["Cc"], s["Ci"], s["heads"])
-    return da.WGMMA_KERNEL if d.kernel == "wgmma" else da.KERNEL
+    return da.CTX_KERNELS[da.ctx_design(s["B"], s["W"] ** 2, s["Cc"], s["Ci"], s["heads"]).kernel]
 
 
 def k1_launches(shapes):
@@ -403,7 +407,7 @@ def k1_launches(shapes):
     K1's launches)."""
     from morphablediffusion_torch.ops import depth_attention as da
 
-    n = {da.KERNEL.name: 0, da.WGMMA_KERNEL.name: 0}
+    n = {k.name: 0 for k in da.CTX_KERNELS.values()}
     for s in shapes:
         n[k1_kernel(s).name] += s["per_step"]
     return n
@@ -417,11 +421,34 @@ def k1_alternatives(s):
 
     B, S, Cc, Ci, heads = s["B"], s["W"] ** 2, s["Cc"], s["Ci"], s["heads"]
     chosen = da.ctx_design(B, S, Cc, Ci, heads)
-    if chosen.kernel != "wgmma":
+    if chosen.kernel == "wmma":
         return []
-    alts = [da.CtxDesign("wgmma", g, da.WGMMA_TILE) for g, _ in da.WGMMA_GROUPS[(Cc, Ci // heads)]
+    alts = [da.CtxDesign("wgmma", g, da.WGMMA_TILE)
+            for g, _ in da.WGMMA_GROUPS.get((Cc, Ci // heads), ())
             if g != chosen.group and heads % g == 0]
+    if chosen.kernel == "cluster":  # the other number of tiles a cluster, where built
+        alts += [da.CtxDesign("cluster", chosen.group, da.CLUSTER_ROWS * t)
+                 for t in da.CLUSTER_TPC[Cc] if da.CLUSTER_ROWS * t != chosen.tile]
     return alts + [da.CtxDesign("wmma", 1, da._tile(B, S, heads))]
+
+
+def k1_plan_line(s, lib):
+    """K1's cluster-design plan at shape s (ctx_cluster_plan) with the
+    clusters the card holds at once (cudaOccupancyMaxActiveClusters); the
+    kernel's shared-memory layout (ring stages included) must agree with the
+    plan's."""
+    from morphablediffusion_torch.ops import depth_attention as da
+
+    B, W, D, Cc = s["B"], s["W"], s["D"], s["Cc"]
+    plan = da.ctx_cluster_plan(B, W * W, D, Cc, s["Ci"], s["heads"])
+    smem = lib.md_depth_attention_ctx_cluster_smem_bytes(Cc, plan.tpc)
+    if smem != plan.smem:
+        raise AssertionError(f"K1 cluster design at W={W}: the kernel's layout takes {smem} B, "
+                             f"the plan {plan.smem} B")
+    return (f"plan cluster={plan.cluster} tiles/cluster={plan.tpc} samples/tile={plan.samples} "
+            f"tiles={plan.tiles} grid={plan.blocks} blocks stages={plan.stages} smem="
+            f"{plan.smem} B (held: {plan.held}; streamed: {plan.streamed}), max active "
+            f"clusters {lib.md_depth_attention_ctx_cluster_max_clusters(Cc, plan.tpc)}")
 
 
 def check_k1(shapes, device, rn, iters: int, path: str):
@@ -432,7 +459,8 @@ def check_k1(shapes, device, rn, iters: int, path: str):
     {kernel name: rows} by the design that `ctx_design` picks."""
     from morphablediffusion_torch.ops import depth_attention as da
 
-    rows = {da.KERNEL.name: [], da.WGMMA_KERNEL.name: []}
+    rows = {k.name: [] for k in da.CTX_KERNELS.values()}
+    lib = ctypes.CDLL(str(da.CLUSTER_KERNEL.lib_path()))
     for s in shapes:
         B, W, D, Cc, Ci, heads = s["B"], s["W"], s["D"], s["Cc"], s["Ci"], s["heads"]
         q, ctx = rn(B, Ci, W, W), rn(B, Cc, D, W, W)
@@ -461,6 +489,8 @@ def check_k1(shapes, device, rn, iters: int, path: str):
             f"ms={ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} bound_ms={b_ms:.5f} "
             f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), {b_ms / dev_ms:.1%} of "
             f"the bound on the device, x{s['per_step']}/step")
+        if design.kernel == "cluster":
+            log(f"  {k1_plan_line(s, lib)}")
         alt_errs = []
         for alt in k1_alternatives(s):
             launch = lambda: da._launch_ctx(*args, alt)
@@ -1005,6 +1035,7 @@ def kernel_group(name: str) -> str:
     backends), then the library groups."""
     low = name.lower()
     for key, group in (("md_ctx_wgmma_kernel", "K1 depth_attention_ctx (wgmma)"),
+                       ("md_ctx_cluster_kernel", "K1 depth_attention_ctx (cluster)"),
                        ("depth_ctx_kernel", "K1 depth_attention_ctx (WMMA)"),
                        ("md_flash_fwd_kernel", "K2 flash_attention"),
                        ("md_flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
@@ -1348,8 +1379,8 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    kernels = (da.WGMMA_KERNEL, da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL, fa.BWD_DQ_KERNEL,
-               da.DEPTH_KERNEL, *gn.KERNELS)
+    kernels = (da.WGMMA_KERNEL, da.CLUSTER_KERNEL, da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL,
+               fa.BWD_DQ_KERNEL, da.DEPTH_KERNEL, *gn.KERNELS)
     _cuda.build(kernels)
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
@@ -1359,7 +1390,9 @@ def main() -> int:
                          for ln in k.build_log.splitlines())
         log(f"  {k.name}: nvcc {k.build_seconds:.2f} s; {serialized} serialized-wgmma notes; "
             f"{regs}")
-    # the two cluster kernels: registers, shared memory, spills (any spill fails)
+    # the cluster kernels: registers, shared memory, spills (any spill fails)
+    log(f"  K1 cluster design resources: "
+        f"{entry_resources(da.CLUSTER_KERNEL, 'md_ctx_cluster_kernel')}")
     log(f"  K3 resources: {entry_resources(da.DEPTH_KERNEL, 'md_depth_attn_kernel')}")
     log(f"  K4 resources: {entry_resources(gn.KERNEL, 'md_group_norm_kernel')}")
 
@@ -1388,8 +1421,9 @@ def main() -> int:
     sampler = SyncDDIMSampler(model, sample_steps=cfg.model.sample_steps)
     want = avatar_launches(kernels, cfg, k1_shapes, k2_shape, gn_avatar)
     _, _, launches = timed_avatar(sampler, batch, kernels, want, "phase 4")
-    if (want[da.KERNEL.name] + want[da.WGMMA_KERNEL.name] != 500
-            or want["flash_attention"] != 250 or want[gn.KERNEL.name] != 5902):
+    if ((want[da.WGMMA_KERNEL.name], want[da.CLUSTER_KERNEL.name], want[da.KERNEL.name])
+            != (350, 150, 0) or want["flash_attention"] != 250
+            or want[gn.KERNEL.name] != 5902):
         raise AssertionError(f"expected launches {want}")
 
     # 5. where one denoising step's device time goes
@@ -1436,7 +1470,7 @@ def main() -> int:
         for name, source, replaces, run in (
             ("depth_attention_ctx_wgmma", "depth_attention_ctx.cu",
              "morphablediffusion_tpu/ops/depth_attention.py:236 (W=32, W=16)", serving),
-            ("depth_attention_ctx", "depth_attention_ctx.cu",
+            ("depth_attention_ctx_cluster", "depth_attention_ctx_cluster.cu",
              "morphablediffusion_tpu/ops/depth_attention.py:236 (W=8, W=4)", serving),
             ("flash_attention", "flash_attention.cu",
              "morphablediffusion_tpu/models/layers.py:277", serving),

@@ -14,11 +14,11 @@
 // operations at the narrow levels, and by both alike at W=32 (0.033 ms
 // each). Measured (chip_smoke.py, H100 SXM at 700 W, device time at B=16)
 // the Hopper design below takes ~0.083 ms at W=32 and ~0.041 ms at W=16,
-// ~40% of the bound, where the WMMA design takes 1.46 and 0.60 ms; that one
-// still runs W=8 and W=4 at ~1-2% of their bounds (PERF.md).
+// ~40% of the bound, where the WMMA design takes 1.46 and 0.60 ms (PERF.md).
 //
 // Two designs, chosen by shape before launch (ops/depth_attention.py::
-// ctx_design); a shape that neither takes is refused.
+// ctx_design), with a third in depth_attention_ctx_cluster.cu (the narrow
+// levels, W=8 and W=4); a shape that none takes is refused.
 //
 // 1. The Hopper design, md_ctx_wgmma_kernel<Cc, hd, G> (md_depth_attention_
 //    ctx_wgmma), for (Cc, hd) = (64, 32) and (128, 64), H*W a multiple of
@@ -53,9 +53,8 @@
 //    tile (out is channels-first) and written by one TMA store.
 //
 // 2. The WMMA design (the port's first), depth_ctx_kernel<MT>
-//    (md_depth_attention_ctx_fwd), for every other shape (today the narrow
-//    levels W=8 and W=4, whose Wk and Wv, 512 KB and 2 MB, do not fit in
-//    shared memory):
+//    (md_depth_attention_ctx_fwd), for every shape the other two do not
+//    take (none on the main path since the cluster design took W=8, W=4):
 //  * the depth axis is a loop with an ONLINE softmax (running max and sum
 //    per pixel, fp32 accumulator of hd per pixel), so shared memory holds
 //    one depth slice at a time;
@@ -134,18 +133,6 @@ __device__ __forceinline__ uint32_t bf16_pair(unsigned char* tile, int row, int 
   const bf16 hi = *reinterpret_cast<const bf16*>(tile + sw128_offset(row + 1, col));
   __nv_bfloat162 v = __halves2bfloat162(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
-// x, which the compiler may not treat as loop-invariant: what is computed
-// from it inside the depth loop (the wgmma descriptors) is not hoisted into
-// registers that would stay live across the loop.
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
 }
 
 // CC = Cc, HD = head_dim, G = heads per block. Block: pixels s0 .. s0 + 63

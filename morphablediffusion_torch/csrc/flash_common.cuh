@@ -1,8 +1,9 @@
 // Hopper machinery shared by the flash-attention kernels
 // (flash_attention.cu: the forward; flash_attention_bwd.cu: K2-dkv, K2-dq)
-// and the depth-context kernel's Hopper design (depth_attention_ctx.cu):
-// mbarriers, TMA loads and stores of tensor maps, wgmma descriptors and
-// products, and the host's tensor-map encoding.
+// and the depth-context kernel's Hopper and cluster designs
+// (depth_attention_ctx.cu, depth_attention_ctx_cluster.cu): mbarriers, TMA
+// loads and stores of tensor maps, wgmma descriptors and products, and the
+// host's tensor-map encoding.
 //
 // Every tile is 64 bf16 columns (128 bytes, the 128-byte swizzle's row)
 // by some rows. The flash kernels copy them by TMA from a (batch, L,
@@ -154,6 +155,31 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes
          (1ull << 62);
 }
 
+// The same for a K-major tile of 64-byte rows (32 bf16) in the 64-byte
+// swizzle (the tile 512-byte aligned): stride byte offset 512 B (the next 8
+// rows), layout type 2; a k16 step is 32 bytes further along the rows (+2).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// Byte offset of element (row, col) of a tile of 64-byte rows in the 64-byte
+// swizzle: the 16-byte chunk col / 8 of a row sits at (col / 8) ^ (row / 2 % 4).
+__device__ __forceinline__ int sw64_offset(int row, int col) {
+  return row * 64 + ((((col >> 3) ^ ((row >> 1) & 3)) << 4) | ((col & 7) << 1));
+}
+
+// wgmma descriptor of an MN-major tile whose rows are `span` bytes (32, 64
+// or 128) in the swizzle of that span: groups of span / 2 MN elements
+// `lbo` bytes apart, groups of 8 K rows `sbo` bytes apart (a k16 step is 16
+// rows, 16 * span bytes further). At span 128 and 64 MN rows it is
+// sw128_desc(addr, lbo).
+__device__ __forceinline__ uint64_t mn_desc(uint32_t addr, int span, uint32_t lbo, uint32_t sbo) {
+  const uint64_t type = span == 128 ? 1 : span == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (type << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -177,6 +203,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// x, which the compiler may not treat as loop-invariant: what is computed
+// from it inside the depth loop (the wgmma descriptors) is not hoisted into
+// registers that would stay live across the loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -186,6 +220,10 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
 // D (64 x 64 fp32) += A (64 x 16) B^T (B: 64 x 16), both from shared memory,
@@ -217,6 +255,19 @@ __device__ __forceinline__ void wgmma_ss64_mn_a(float (&d)[32], uint64_t da, uin
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The same at N = 32 (16 floats a thread). (The cluster design's slice of
+// the projection, X_d Wp_r^T, 32 output channels a block.)
+__device__ __forceinline__ void wgmma_ss32_mn_a(float (&d)[16], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -436,16 +487,17 @@ int encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int batch, int L, 
 // A bf16 tensor of `rank` (2 to 5) dimensions as a tensor map: dims
 // innermost first (dims[0] elements contiguous), strides[i] the bytes
 // between steps of dimension i + 1 (multiples of 16), box the elements
-// copied per dimension (box[0] = 64: one 128-byte row); 128-byte swizzle,
-// zero fill.
+// copied per dimension (box[0] = 64: one 128-byte row, or box[0] * 2 bytes
+// = the swizzle's span, 32 or 64: TMA pads a shorter row to the span);
+// 128-byte swizzle unless `swizzle` says otherwise, zero fill.
 int encode_box(EncodeTiled fn, CUtensorMap* map, const void* ptr, int rank,
-               const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+               const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+               CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
   const CUresult res =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
          const_cast<void*>(ptr), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + static_cast<int>(res);
 }
 

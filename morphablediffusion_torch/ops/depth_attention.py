@@ -11,10 +11,13 @@ GroupNorm statistics of the bias-free projection follow from the context's
 first and second moments (`ctx_moments`, `_ctx_affine`, plain fp32 torch,
 outside the kernel), so the norm folds into a per-(sample, channel) affine
 y = relu(p * A + B2), and the kernel `csrc/depth_attention_ctx.cu` streams
-the raw context once without writing any (B, C, D, H, W) tensor. It has two
+the raw context once without writing any (B, C, D, H, W) tensor. It has three
 designs, chosen by shape before launch (`ctx_design`): the Hopper one (TMA,
-wgmma, the chain in registers) at the two wide levels, and the WMMA one
-for every other shape.
+wgmma, the chain in registers) at the two wide levels, the cluster one
+(`csrc/depth_attention_ctx_cluster.cu`: a thread-block cluster per 64-row
+tile that splits the projection and the heads, y shared over distributed
+shared memory; planned by `ctx_cluster_plan`) at the two narrow levels, and
+the WMMA one for every other shape.
 
 Layout is channels-first: q (B, Ci, H, W), context (B, Cc, D, H, W), k/v
 (B, C, D, H, W), outputs (B, Ci, H, W). Weights are nn.Linear (out, in).
@@ -45,6 +48,10 @@ KERNEL = _cuda.CudaKernel(  # K1, the WMMA design
 WGMMA_KERNEL = _cuda.CudaKernel(  # K1, the Hopper design
     "depth_attention_ctx_wgmma", "depth_attention_ctx.cu", "md_depth_attention_ctx_wgmma",
     _CTX_ARGS)
+CLUSTER_KERNEL = _cuda.CudaKernel(  # K1, the cluster design
+    "depth_attention_ctx_cluster", "depth_attention_ctx_cluster.cu",
+    "md_depth_attention_ctx_cluster",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
 DEPTH_KERNEL = _cuda.CudaKernel(  # K3
     "depth_attention", "depth_attention.cu", "md_depth_attention_fwd",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
@@ -123,21 +130,120 @@ WGMMA_TILE = 64  # pixels per block: the rows of a wgmma tile
 WGMMA_FILL = 128
 
 
+# K1's cluster design (csrc/depth_attention_ctx_cluster.cu): a cluster of
+# Cc / CLUSTER_NP blocks per tile of CLUSTER_ROWS rows (sample, pixel), or
+# per two tiles (a warpgroup each); a block owns CLUSTER_NP channels of the
+# projection and CLUSTER_KV of k and of v, holds its Wk and Wv rows and all
+# of y, and streams ctx and its Wp rows by TMA through a ring of up to
+# CLUSTER_MAX_STAGES 64-channel slots.
+CLUSTER_CC = (256, 512)  # the Cc it is built for: clusters of 8 and 16
+CLUSTER_ROWS = 64
+CLUSTER_NP = 32
+CLUSTER_KV = 64
+CLUSTER_MAX_STAGES = 8
+CLUSTER_PIXELS = (16, 32, 64)  # H*W it takes: a tile holds 64 / (H*W) samples
+CLUSTER_TPC = {256: (1, 2), 512: (1,)}  # the tiles a cluster it is built for, by Cc
+# clusters of 8 and of 16 blocks of the design that an H100 holds at once
+# (cudaOccupancyMaxActiveClusters, logged by chip_smoke.py): more tiles
+# than these at one tile a cluster would run in two waves
+CLUSTER_RESIDENT = {8: 15, 16: 7}
+MAX_BLOCK_SMEM = 232448  # the most shared memory an H100 block may have
+
+
+class ClusterPlan(NamedTuple):
+    """How K1's cluster design runs one call: clusters of `cluster` blocks,
+    each taking `tpc` tiles of 64 rows (a warpgroup of a block each) that
+    hold `samples` samples' pixels; `tiles` tiles, `blocks` in the grid;
+    `held` is what a block loads once and keeps, `streamed` what flows
+    through its ring of `stages` slots per depth; `smem` bytes a block."""
+    cluster: int
+    tpc: int
+    samples: int
+    tiles: int
+    blocks: int
+    stages: int
+    held: str
+    streamed: str
+    smem: int
+
+
+def _cluster_smem(Cc: int, stages: int, tpc: int = 1) -> int:
+    """A block's shared memory (csrc/depth_attention_ctx_cluster.cu::Clu)
+    at `tpc` tiles a cluster: the Wk and Wv slices, y per tile, the ring,
+    per tile the head's partial logits for two depths, the mbarriers, 1024
+    bytes of alignment."""
+    row = 128  # bytes of a 64-channel row
+    cluster = Cc // CLUSTER_NP
+    held = 2 * (Cc // 64) * CLUSTER_KV * row + tpc * CLUSTER_ROWS * Cc * 2
+    ring = stages * (tpc * 64 * row + CLUSTER_NP * row)
+    part = tpc * 2 * cluster * CLUSTER_ROWS * 4
+    return held + ring + part + 8 * (1 + tpc + CLUSTER_MAX_STAGES) + 1024
+
+
+def ctx_cluster_plan(B: int, S: int, D: int, Cc: int, Ci: int, num_heads: int,
+                     tpc: int | None = None) -> ClusterPlan:
+    """K1's cluster-design plan for q (B, Ci, S) and ctx (B, Cc, D, S).
+
+    The cluster is Cc / 32 blocks (8 at Cc = 256, 16 at 512), which needs
+    Ci = 2 Cc and a head_dim that is a multiple of 64 (a head is head_dim /
+    64 blocks); a tile is 64 rows, 64 / S samples of S pixels (S 16, 32 or
+    64), the last one zero-filled past B. A cluster takes two tiles (`tpc`)
+    where it is built for two and there are more tiles than the card holds
+    clusters at once (CLUSTER_RESIDENT; else one, or `tpc` if given). The
+    ring takes as many stages as fit next to the held slices, up to 8.
+    Raises ValueError for a shape the kernel cannot take."""
+    if num_heads < 1 or Ci % num_heads:
+        raise ValueError(f"depth_attention_ctx: {Ci} channels do not split into "
+                         f"{num_heads} heads")
+    hd = Ci // num_heads
+    if Ci != 2 * Cc or hd % CLUSTER_KV or Cc % CLUSTER_NP:
+        raise ValueError(f"depth_attention_ctx cluster design: needs Ci = 2 Cc and head_dim "
+                         f"a multiple of {CLUSTER_KV}; got Cc={Cc}, Ci={Ci}, head_dim={hd}")
+    if min(B, D) < 1 or S not in CLUSTER_PIXELS:
+        raise ValueError(f"depth_attention_ctx cluster design: needs H*W in "
+                         f"{CLUSTER_PIXELS} and B, D >= 1; got H*W={S}, B={B}, D={D}")
+    cluster, samples = Cc // CLUSTER_NP, CLUSTER_ROWS // S
+    tiles = -(-B // samples)
+    if tpc is None:
+        tpc = 2 if tiles > CLUSTER_RESIDENT.get(cluster, tiles) and 2 in CLUSTER_TPC.get(
+            Cc, ()) else 1
+    room = MAX_BLOCK_SMEM - _cluster_smem(Cc, 0, tpc)
+    stages = min(CLUSTER_MAX_STAGES,
+                 room // (_cluster_smem(Cc, 1, tpc) - _cluster_smem(Cc, 0, tpc)))
+    if stages < 2:
+        raise ValueError(f"depth_attention_ctx cluster design: Cc={Cc} at {tpc} tiles a "
+                         f"cluster overruns a block's shared memory "
+                         f"({_cluster_smem(Cc, 2, tpc)} B with two ring stages > "
+                         f"{MAX_BLOCK_SMEM})")
+    if tpc not in CLUSTER_TPC.get(Cc, ()):
+        raise ValueError(f"depth_attention_ctx cluster design: not built for Cc={Cc} at "
+                         f"{tpc} tiles a cluster (built for {CLUSTER_TPC})")
+    return ClusterPlan(cluster, tpc, samples, tiles, -(-tiles // tpc) * cluster, stages,
+                       f"Wk, Wv slices {2 * CLUSTER_KV} x {Cc}, y 64 x {Cc} per tile",
+                       f"ctx 64 x 64 + Wp slice {CLUSTER_NP} x 64 per slot (TMA)",
+                       _cluster_smem(Cc, stages, tpc))
+
+
 class CtxDesign(NamedTuple):
-    """Which K1 design runs a shape: `kernel` "wgmma" (the Hopper design) or
-    "wmma" (the port's first), `group` heads per block, `tile` pixels per block."""
+    """Which K1 design runs a shape: `kernel` "wgmma" (the Hopper design),
+    "cluster" (the cluster design) or "wmma" (the port's first); `group` is
+    heads per block (the cluster design: blocks per cluster), `tile` pixels
+    per block (the cluster design: rows per cluster, 64 a tile)."""
     kernel: str
     group: int
     tile: int
 
     def blocks(self, B: int, S: int, num_heads: int) -> int:
+        if self.kernel == "cluster":
+            return -(-B // (self.tile // S)) * self.group
         return B * (S // self.tile) * (num_heads // self.group)
 
 
 def ctx_design(B: int, S: int, Cc: int, Ci: int, num_heads: int) -> CtxDesign:
     """The K1 design for q (B, Ci, S) and ctx (B, Cc, D, S) at num_heads.
 
-    The Hopper design takes (Cc, head_dim) in `WGMMA_GROUPS` with S a
+    The cluster design takes every shape `ctx_cluster_plan` takes: the main
+    path's W=8 and W=4 (its plan does not depend on D). The Hopper design takes (Cc, head_dim) in `WGMMA_GROUPS` with S a
     multiple of 64: the main path's W=32 and W=16. Its G is the largest that
     divides num_heads and whose grid still fills the card at its blocks per
     SM (WGMMA_FILL of them per block an SM holds), else the smallest: on the
@@ -150,6 +256,11 @@ def ctx_design(B: int, S: int, Cc: int, Ci: int, num_heads: int) -> CtxDesign:
         raise ValueError(f"depth_attention_ctx: {Ci} channels do not split into "
                          f"{num_heads} heads")
     hd = Ci // num_heads
+    try:
+        plan = ctx_cluster_plan(B, S, 1, Cc, Ci, num_heads)
+        return CtxDesign("cluster", plan.cluster, CLUSTER_ROWS * plan.tpc)
+    except ValueError:
+        pass
     options = [(CtxDesign("wgmma", g, WGMMA_TILE), per_sm)
                for g, per_sm in WGMMA_GROUPS.get((Cc, hd), ()) if num_heads % g == 0]
     if options and S % WGMMA_TILE == 0:
@@ -169,13 +280,18 @@ def ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int):
     q (B, Ci, H, W); ctx (B, Cc, D, H, W); Wp (Cc, Cc); A, B2 (B, Cc) fp32;
     Wk, Wv (Ci, Cc). Returns (B, Ci, H, W), before to_out. CPU tensors take
     `_ctx_reference`; CUDA tensors go to the kernel of `ctx_design`, which
-    takes bf16 (16-byte aligned for the Hopper design's tensor maps).
+    takes bf16 (16-byte aligned for the Hopper design's tensor maps and the
+    cluster design's 16-byte copies).
     """
     if not q.is_cuda:
         return _ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, num_heads)
     B, Ci, H, W = q.shape
     return _launch_ctx(q, ctx, Wp, A, B2, Wk, Wv, num_heads,
                        ctx_design(B, H * W, ctx.shape[1], Ci, num_heads))
+
+
+# the CudaKernel of each K1 design
+CTX_KERNELS = {"wmma": KERNEL, "wgmma": WGMMA_KERNEL, "cluster": CLUSTER_KERNEL}
 
 
 def _launch_ctx(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int, design: CtxDesign):
@@ -191,8 +307,13 @@ def _launch_ctx(q, ctx, Wp, A, B2, Wk, Wv, num_heads: int, design: CtxDesign):
         raise ValueError("depth_attention_ctx: inconsistent shapes")
     out = torch.empty_like(q)
     args = [_cuda.ptr(t) for t in (q, ctx, Wp, A, B2, Wk, Wv, out)]
-    if design.kernel == "wgmma":
+    if design.kernel in ("wgmma", "cluster"):
         _cuda.check_aligned("depth_attention_ctx", q, ctx, Wp, Wk, Wv)
+    if design.kernel == "cluster":
+        plan = ctx_cluster_plan(B, H * W, D, Cc, Ci, num_heads, design.tile // CLUSTER_ROWS)
+        CLUSTER_KERNEL.launch(*args, B, D, H * W, Cc, Ci, num_heads, plan.cluster, plan.tpc,
+                              (Ci // num_heads) ** -0.5, _cuda.stream_of(q))
+    elif design.kernel == "wgmma":
         WGMMA_KERNEL.launch(*args, B, D, H * W, Cc, Ci, num_heads, design.group,
                             (Ci // num_heads) ** -0.5, _cuda.stream_of(q))
     else:

@@ -55,7 +55,7 @@ def _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=0, q_scale=1.0):
 
 
 def _ctx_launches():
-    return {k.name: k.launches for k in (da.KERNEL, da.WGMMA_KERNEL)}
+    return {k.name: k.launches for k in da.CTX_KERNELS.values()}
 
 
 @pytest.mark.parametrize("B,W,D,Cc,Ci,heads,q_scale,design", [
@@ -74,13 +74,27 @@ def _ctx_launches():
     (2, 16, 5, 128, 256, 4, 1.0, "wgmma"),    # D = 5: not a multiple of 2 or 3 stages
     (4, 32, 48, 64, 128, 4, 8.0, "wgmma"),    # q x 8: the running max moves across depth
     (4, 16, 24, 128, 256, 4, 8.0, "wgmma"),
+    (16, 8, 12, 256, 512, 4, 1.0, "cluster"),   # the main path's W=8 at serving: 2 tiles a cluster
+    (17, 8, 3, 256, 512, 4, 1.0, "cluster"),    # 2 tiles a cluster, the last cluster's second empty
+    (8, 8, 12, 256, 512, 4, 1.0, "cluster"),    # W=8 in training
+    (4, 8, 12, 256, 512, 4, 1.0, "cluster"),    # W=8 at the validation chunk's B=4
+    (16, 4, 6, 512, 1024, 4, 1.0, "cluster"),   # the main path's W=4 at serving
+    (4, 4, 6, 512, 1024, 4, 1.0, "cluster"),    # W=4, one tile of four samples
+    (1, 4, 6, 512, 1024, 4, 1.0, "cluster"),    # W=4, a tile of one sample: zero-filled rows
+    (3, 4, 6, 512, 1024, 4, 1.0, "cluster"),    # W=4, a ragged tile of three samples
+    (2, 8, 1, 256, 512, 4, 1.0, "cluster"),     # D = 1
+    (2, 8, 7, 256, 512, 4, 1.0, "cluster"),     # D = 7: the ring's 8 stages wrap mid-depth
+    (5, 4, 5, 512, 1024, 4, 1.0, "cluster"),    # D = 5, two tiles, the second ragged
+    (2, 8, 12, 256, 512, 2, 1.0, "cluster"),    # 2 heads: a head is 4 blocks of the cluster
+    (4, 8, 12, 256, 512, 4, 8.0, "cluster"),    # q x 8: the running max moves across depth
+    (4, 4, 6, 512, 1024, 4, 8.0, "cluster"),
 ])
 def test_depth_attention_ctx_kernel(dev, B, W, D, Cc, Ci, heads, q_scale, design):
-    """One launch of the design `ctx_design` picks (asserted), within REL_L2
-    of the plain version."""
+    """One launch of the design `ctx_design` picks (asserted), and none of
+    the others, within REL_L2 of the plain version."""
     args = _ctx_args(dev, B, W, D, Cc, Ci, heads, q_scale=q_scale)
     assert da.ctx_design(B, W * W, Cc, Ci, heads).kernel == design
-    kernel = da.WGMMA_KERNEL if design == "wgmma" else da.KERNEL
+    kernel = da.CTX_KERNELS[design]
     before = _ctx_launches()
     out = da.ctx_attention(*args)
     torch.cuda.synchronize()
@@ -102,6 +116,96 @@ def test_depth_attention_ctx_every_group(dev, B, W, D, Cc, Ci, heads):
         out = da._launch_ctx(*args, design)
         torch.cuda.synchronize()
         assert _rel(out, want) <= REL_L2, design
+
+
+@pytest.mark.parametrize("B,W,D,Cc", [(4, 8, 5, 256), (3, 4, 3, 512), (16, 8, 4, 256)])
+def test_depth_attention_ctx_cluster_and_wmma_designs_agree(dev, B, W, D, Cc):
+    """At the cluster design's shapes the WMMA design and the other number
+    of tiles a cluster, which chip_smoke.py times beside it, hold the same
+    bar on the same inputs; two launches of the cluster design agree bit for
+    bit (each head's partial logits are added in rank order)."""
+    args = _ctx_args(dev, B, W, D, Cc, 2 * Cc, 4, seed=18)
+    want = da._ctx_reference(*args)
+    chosen = da.ctx_design(B, W * W, Cc, 2 * Cc, 4)
+    assert chosen.kernel == "cluster"
+    out = da._launch_ctx(*args, chosen)
+    assert torch.equal(out, da._launch_ctx(*args, chosen))
+    assert _rel(out, want) <= REL_L2
+    for tpc in da.CLUSTER_TPC[Cc]:
+        other = da._launch_ctx(*args, chosen._replace(tile=da.CLUSTER_ROWS * tpc))
+        assert _rel(other, want) <= REL_L2, tpc
+    wmma = da._launch_ctx(*args, da.CtxDesign("wmma", 1, da._tile(B, W * W, 4)))
+    torch.cuda.synchronize()
+    assert _rel(wmma, want) <= REL_L2
+
+
+def test_depth_attention_ctx_cluster_plan_matches_the_kernel(dev):
+    """The kernel's shared memory (its ring stages included) is the plan's at both
+    Cc and at one and two tiles a cluster, and the card holds at least one
+    cluster of each (at two tiles a cluster, all of B=16's)."""
+    import ctypes
+
+    da.CLUSTER_KERNEL._load()
+    lib = ctypes.CDLL(str(da.CLUSTER_KERNEL.lib_path()))
+    for S, Cc, tpc in [(64, 256, 1), (64, 256, 2), (16, 512, 1)]:
+        plan = da.ctx_cluster_plan(16, S, 6, Cc, 2 * Cc, 4, tpc)
+        assert lib.md_depth_attention_ctx_cluster_smem_bytes(Cc, tpc) == plan.smem
+        # at two tiles a cluster, all 8 of B=16's clusters at once
+        assert lib.md_depth_attention_ctx_cluster_max_clusters(Cc, tpc) >= (
+            plan.tiles // tpc if tpc > 1 else 1)
+
+
+@pytest.mark.parametrize("B,W,D,Cc", [(2, 8, 5, 256), (3, 4, 3, 512)])
+def test_depth_attention_ctx_cluster_reads_nothing_past_its_tensors(dev, B, W, D, Cc):
+    """q, ctx and the weights at the start of buffers whose tail is NaN,
+    for the cluster design at W=8 and at W=4 with a ragged tile (its last
+    sample's rows are zero-filled, not read)."""
+    Ci, heads = 2 * Cc, 4
+
+    def padded(t):
+        buf = torch.full((t.numel() + 4096,), float("nan"), device=dev, dtype=t.dtype)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(t.shape)
+
+    q, ctx, Wp, A, B2, Wk, Wv, _ = _ctx_args(dev, B, W, D, Cc, Ci, heads, seed=19)
+    q, ctx, Wp, Wk, Wv, A, B2 = (padded(t) for t in (q, ctx, Wp, Wk, Wv, A, B2))
+    before = da.CLUSTER_KERNEL.launches
+    out = da.ctx_attention(q, ctx, Wp, A, B2, Wk, Wv, heads)
+    torch.cuda.synchronize()
+    assert da.CLUSTER_KERNEL.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert _rel(out, da._ctx_reference(q, ctx, Wp, A, B2, Wk, Wv, heads)) <= REL_L2
+
+
+def test_depth_attention_ctx_cluster_gradients(dev):
+    """The gradient through `depth_attention_ctx` at the main path's W=8
+    (cluster design forward, backward recomputed through `_ctx_full`)
+    reaches all nine inputs, close to autograd of the plain version."""
+    g = torch.Generator(dev).manual_seed(20)
+    B, W, D, Cc, Ci, heads = 2, 8, 12, 256, 512, 4
+    ctx = _randn(g, B, Cc, D, W, W)
+    mean_x, m2 = da.ctx_moments(ctx)
+    nine = [_randn(g, B, Ci, W, W), ctx, mean_x, m2, _randn(g, Cc, Cc, std=Cc ** -0.5),
+            1.0 + 0.1 * torch.randn(Cc, generator=g, device=dev),
+            0.1 * torch.randn(Cc, generator=g, device=dev),
+            _randn(g, Ci, Cc, std=Cc ** -0.5), _randn(g, Ci, Cc, std=Cc ** -0.5)]
+    w = torch.randn((B, Ci, W, W), generator=g, device=dev)
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_(True) for t in nine]
+        out = fn(*leaves)
+        (out.float() * w).sum().backward()
+        return out, [t.grad for t in leaves]
+
+    before = _ctx_launches()
+    out, got = grads(lambda *t: da.depth_attention_ctx(*t, heads))
+    assert _ctx_launches() == dict(before, **{da.CLUSTER_KERNEL.name:
+                                              before[da.CLUSTER_KERNEL.name] + 1})
+    want_out, want = grads(lambda *t: da._ctx_full(*t, heads, 8, 1e-5))
+    assert _rel(out, want_out) <= REL_L2
+    for a, b in zip(got, want):
+        assert a is not None and a.float().abs().sum() > 0
+        assert _rel(a, b) <= REL_L2
 
 
 def test_depth_attention_ctx_reads_nothing_past_its_tensors(dev):
@@ -543,13 +647,14 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     args = list(_ctx_args(dev, 2, 4, 6, 32, 96, 4))  # head_dim 24
     with pytest.raises(ValueError, match="head_dim"):
         da.ctx_attention(*args)
-    args = list(_ctx_args(dev, 2, 8, 3, 64, 128, 4))  # the Hopper design's tensor maps
-    shifted = torch.empty(args[1].numel() + 4, device=dev, dtype=torch.bfloat16)[4:]
-    args[1] = shifted.view(args[1].shape).copy_(args[1])
-    before = da.WGMMA_KERNEL.launches
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        da.ctx_attention(*args)
-    assert da.WGMMA_KERNEL.launches == before
+    for W, Cc in ((8, 64), (8, 256), (4, 512)):  # Hopper's tensor maps; cluster's copies
+        args = list(_ctx_args(dev, 2, W, 3, Cc, 2 * Cc, 4))
+        shifted = torch.empty(args[1].numel() + 4, device=dev, dtype=torch.bfloat16)[4:]
+        args[1] = shifted.view(args[1].shape).copy_(args[1])
+        before = _ctx_launches()
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            da.ctx_attention(*args)
+        assert _ctx_launches() == before
     k = _randn(g, 2, 64, 6, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
         da.depth_attention(_randn(g, 2, 64, 4, 4), k.transpose(3, 4), k, 4)

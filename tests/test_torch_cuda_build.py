@@ -35,6 +35,17 @@ def test_lib_path_follows_the_shared_header(csrc, source):
     assert kernel.lib_path() != before
 
 
+@pytest.mark.parametrize("header", ["flash_common.cuh", "cluster_common.cuh"])
+def test_cluster_design_follows_both_headers(csrc, header):
+    """K1's cluster design includes cluster_common.cuh, which includes
+    flash_common.cuh: an edit to either rebuilds it."""
+    kernel = _kernel("depth_attention_ctx_cluster.cu")
+    before = kernel.lib_path()
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert kernel.lib_path() != before
+
+
 def test_lib_path_follows_the_source(csrc):
     kernel = _kernel("flash_attention_bwd.cu")
     before = kernel.lib_path()

@@ -132,19 +132,23 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 # every K1 shape of the main path (4 heads, Ci = 2 Cc): serving at B=16,
-# training at B=8 (W >= 8), with the design, G and tile expected
-@pytest.mark.parametrize("B,W,Cc,design", [
-    (16, 32, 64, ("wgmma", 4, 64)), (16, 16, 128, ("wgmma", 2, 64)),
-    (16, 8, 256, ("wmma", 1, 16)), (16, 4, 512, ("wmma", 1, 16)),
-    (8, 32, 64, ("wgmma", 2, 64)), (8, 16, 128, ("wgmma", 1, 64)),
-    (8, 8, 256, ("wmma", 1, 16))])
-def test_ctx_design_of_the_main_path(B, W, Cc, design):
+# training at B=8 (W >= 8), with the design, G (the cluster design: blocks
+# per cluster) and tile (its rows per cluster) expected, and the grid
+@pytest.mark.parametrize("B,W,Cc,design,blocks", [
+    (16, 32, 64, ("wgmma", 4, 64), 256), (16, 16, 128, ("wgmma", 2, 64), 128),
+    (16, 8, 256, ("cluster", 8, 128), 64), (16, 4, 512, ("cluster", 16, 64), 64),
+    (8, 32, 64, ("wgmma", 2, 64), 256), (8, 16, 128, ("wgmma", 1, 64), 128),
+    (8, 8, 256, ("cluster", 8, 64), 64)])
+def test_ctx_design_of_the_main_path(B, W, Cc, design, blocks):
     """The shape rule (`ctx_design`): the two wide levels take the Hopper
     design, with the largest G whose grid fills the card at its blocks per
-    SM (else the smallest); the narrow levels the WMMA design."""
+    SM (else the smallest); the narrow levels the cluster design, a
+    cluster per tile of 64 rows (one sample at W=8, four at W=4), or per
+    two tiles at W=8, B=16 (16 clusters of 8 would be one more than an H100
+    holds at once)."""
     got = t_da.ctx_design(B, W * W, Cc, 2 * Cc, 4)
     assert tuple(got) == design
-    assert got.blocks(B, W * W, 4) == B * (W * W // design[2]) * (4 // design[1])
+    assert got.blocks(B, W * W, 4) == blocks
 
 
 @pytest.mark.parametrize("B,S,Cc,Ci,heads", [
@@ -291,3 +295,84 @@ def test_depth_plan_of_the_training_shape():
 def test_depth_plan_refuses_what_the_kernel_cannot_take(B, C, D, S, heads):
     with pytest.raises(ValueError, match="depth_attention"):
         t_da.depth_plan(B, C, D, S, heads)
+
+
+# K1's cluster-design plan at the main path's narrow shapes (4 heads, Ci =
+# 2 Cc): serving B=16, training B=8, the validation chunk's B=4, and W=4's
+# ragged tiles at B=1, 2, 3; W=8 past 15 tiles (two tiles a cluster, the
+# last cluster's second tile empty at B=17): (B, W, D, Cc) -> (cluster,
+# tiles a cluster, samples a tile, tiles, blocks, stages, shared memory)
+CLUSTER_PLANS = [
+    ((16, 8, 12, 256), (8, 2, 1, 16, 64, 4, 222296)),
+    ((8, 8, 12, 256), (8, 1, 1, 8, 64, 8, 201808)),
+    ((4, 8, 12, 256), (8, 1, 1, 4, 32, 8, 201808)),
+    ((16, 4, 6, 512), (16, 1, 4, 4, 64, 2, 230480)),
+    ((4, 4, 6, 512), (16, 1, 4, 1, 16, 2, 230480)),
+    ((1, 4, 6, 512), (16, 1, 4, 1, 16, 2, 230480)),
+    ((2, 4, 6, 512), (16, 1, 4, 1, 16, 2, 230480)),
+    ((3, 4, 6, 512), (16, 1, 4, 1, 16, 2, 230480)),
+    ((15, 8, 12, 256), (8, 1, 1, 15, 120, 8, 201808)),
+    ((17, 8, 12, 256), (8, 2, 1, 17, 72, 4, 222296)),
+]
+
+
+@pytest.mark.parametrize("shape,want", CLUSTER_PLANS)
+def test_ctx_cluster_plan_of_the_narrow_levels(shape, want):
+    """Cc / 32 blocks a cluster (32 projection channels and 64 k and v
+    channels each: they tile Cc and Ci exactly), one or two tiles of 64
+    rows a cluster, the ring as deep as fits beside the held Wk, Wv slices
+    and y, within the H100's 227 KB a block; `ctx_design` takes it."""
+    B, W, D, Cc = shape
+    plan = t_da.ctx_cluster_plan(B, W * W, D, Cc, 2 * Cc, 4)
+    assert (plan.cluster, plan.tpc, plan.samples, plan.tiles, plan.blocks, plan.stages,
+            plan.smem) == want
+    assert plan.blocks == -(-plan.tiles // plan.tpc) * plan.cluster
+    assert plan.cluster * t_da.CLUSTER_NP == Cc and plan.cluster * t_da.CLUSTER_KV == 2 * Cc
+    assert plan.samples * W * W == t_da.CLUSTER_ROWS
+    assert (plan.tiles - 1) * plan.samples < B <= plan.tiles * plan.samples
+    assert plan.smem == t_da._cluster_smem(Cc, plan.stages, plan.tpc) <= t_da.MAX_BLOCK_SMEM
+    assert t_da._cluster_smem(Cc, plan.stages + 1, plan.tpc) > t_da.MAX_BLOCK_SMEM or (
+        plan.stages == t_da.CLUSTER_MAX_STAGES)
+    design = t_da.ctx_design(B, W * W, Cc, 2 * Cc, 4)
+    assert design == ("cluster", plan.cluster, t_da.CLUSTER_ROWS * plan.tpc)
+    assert design.blocks(B, W * W, 4) == plan.blocks
+
+
+@pytest.mark.parametrize("B,S,D,Cc,Ci,heads,match", [
+    (16, 64, 12, 256, 512, 3, "do not split"),      # heads do not divide Ci
+    (16, 64, 12, 256, 512, 16, "head_dim"),         # head_dim 32: not a multiple of 64
+    (16, 64, 12, 256, 256, 4, "Ci = 2 Cc"),         # Ci != 2 Cc
+    (16, 64, 12, 128, 256, 4, "not built for"),     # Cc 128: clusters of 4 are not built
+    (16, 64, 12, 768, 1536, 4, "shared memory"),    # Cc 768: Wk, Wv and y overrun a block
+    (16, 256, 24, 256, 512, 4, "H\\*W"),           # 256 pixels: more than a tile's 64 rows
+    (16, 36, 12, 256, 512, 4, "H\\*W"),            # 36 pixels: not a tile's divisor
+    (0, 64, 12, 256, 512, 4, "B, D"),               # empty batch
+    (16, 64, 0, 256, 512, 4, "B, D"),               # no depth
+])
+def test_ctx_cluster_plan_refuses_what_the_kernel_cannot_take(B, S, D, Cc, Ci, heads, match):
+    with pytest.raises(ValueError, match=match):
+        t_da.ctx_cluster_plan(B, S, D, Cc, Ci, heads)
+
+
+@pytest.mark.parametrize("Cc,tpc,match", [
+    (512, 2, "shared memory"),   # two tiles' y beside Wk, Wv at Cc 512: more than 227 KB
+    (256, 3, "shared memory"),
+    (256, 0, "not built for"),
+])
+def test_ctx_cluster_plan_refuses_tiles_a_cluster_it_is_not_built_for(Cc, tpc, match):
+    with pytest.raises(ValueError, match=match):
+        t_da.ctx_cluster_plan(16, 64 if Cc == 256 else 16, 6, Cc, 2 * Cc, 4, tpc)
+
+
+@pytest.mark.parametrize("B,S,Cc,Ci,heads,design", [
+    (16, 64, 256, 512, 16, ("wmma", 1, 64)),   # head_dim 32
+    (2, 64, 128, 256, 2, ("wmma", 1, 16)),     # Cc 128, head_dim 128
+    (16, 256, 256, 512, 4, ("wmma", 1, 64)),   # 256 pixels
+    (1, 64, 256, 256, 4, ("wmma", 1, 16)),     # Ci = Cc
+    (2, 16, 32, 64, 4, ("wmma", 1, 16)),       # the card tests' small W=4 shape
+])
+def test_wmma_design_takes_what_the_cluster_plan_refuses(B, S, Cc, Ci, heads, design):
+    """Shapes the cluster plan refuses keep the port's first, WMMA design."""
+    with pytest.raises(ValueError):
+        t_da.ctx_cluster_plan(B, S, 6, Cc, Ci, heads)
+    assert tuple(t_da.ctx_design(B, S, Cc, Ci, heads)) == design

@@ -108,9 +108,11 @@ def test_chip_smoke_main_path_counts():
         (32, 48, 64, 128, 4)]
     assert (k2["B"], k2["L"], k2["heads"], k2["hd"], k2["per_step"]) == (32, 1024, 8, 40, 5)
     assert 50 * sum(s["per_step"] for s in k1) == 500 and 50 * k2["per_step"] == 250
-    # of K1's 500 launches per avatar, W=32 and W=16 take the Hopper design
+    # of K1's 500 launches per avatar, W=32 and W=16 take the Hopper design,
+    # W=8 and W=4 the cluster design, none the WMMA design
     assert {n: 50 * c for n, c in chip_smoke.k1_launches(k1).items()} == {
-        "depth_attention_ctx_wgmma": 350, "depth_attention_ctx": 150}
+        "depth_attention_ctx_wgmma": 350, "depth_attention_ctx_cluster": 150,
+        "depth_attention_ctx": 0}
 
 
 def test_chip_smoke_training_counts():
@@ -129,10 +131,12 @@ def test_chip_smoke_training_counts():
         8, 1024, 8, 40, 10, 5)
     launches = chip_smoke.train_expected_launches(shapes)
     assert launches == {
-        "depth_attention_ctx_wgmma": 14, "depth_attention_ctx": 4, "depth_attention": 2,
+        "depth_attention_ctx_wgmma": 14, "depth_attention_ctx_cluster": 4,
+        "depth_attention_ctx": 0, "depth_attention": 2,
         "flash_attention": 10, "flash_attention_bwd_dkv": 5, "flash_attention_bwd_dq": 5}
-    # K1's 18 launches per step, over its two designs (W=16 and 32; W=8)
-    assert launches["depth_attention_ctx_wgmma"] + launches["depth_attention_ctx"] == 18
+    # K1's 18 launches per step, over its three designs (W=16 and 32; W=8; none)
+    assert (launches["depth_attention_ctx_wgmma"] + launches["depth_attention_ctx_cluster"]
+            + launches["depth_attention_ctx"]) == 18
 
 
 def test_chip_smoke_batch_is_the_bench_batch():
