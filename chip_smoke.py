@@ -35,7 +35,7 @@ Phases (any failure exits non-zero):
      (cluster size, tile or pack, grid, shared memory) and the clusters the
      card holds at once (cudaOccupancyMaxActiveClusters). K4 (GroupNorm)
      is held the same way at every GroupNorm call that the censuses of
-     phases 3, 6 and 7 find, after phase 7 (also no further than 4.97e-5,
+     phases 3, 6, 7 and 8 find, after phase 8 (also no further than 4.97e-5,
      the two-launch design's largest), with its device time beside its yardstick's
      (F.group_norm and the activation) at every shape and summed per avatar
      and per training step, the largest span, and at the widest spans the
@@ -71,7 +71,28 @@ Phases (any failure exits non-zero):
      10 496 vertices; also a warm-up and a timed avatar with launch counts),
      the fine mesh-voxel conditioner (grid (128, 144, 128) at 0.005 m; also
      a timed avatar) and `use_spatial_volume`;
-  8. print the kernels line, the card line, and as the last line
+  8. the generate_face CLI (`apps/generate_face.py`), as a user runs it
+     (`main([...])`; where PIL or PyYAML is missing, through `run(...)` with
+     `Config()` and a synthetic image, the files then held by the CPU tests
+     only): (a) a flagship-width reference-named fp16 checkpoint of the fine
+     model's seeded weights (`export_torch_checkpoint`), held back through
+     the importer (every imported tensor the fp16-rounded seeded one, the
+     others untouched); (b) the documented run on it (`demo/input.png`,
+     `demo/mesh.obj`, `--no_mica_alignment --prepare_neus2_data`): the fine
+     conditioner at grid (112, 120, 116), the import report (0 unused, 0
+     unmatched, every tensor of the file filled), launches per avatar (K1
+     350 + 150 + 0, K2 250, K4 this avatar's GroupNorm census), the strip,
+     16 RGBA views and transform.json, finite non-constant views, and the
+     CLI's seconds in parts; (c) `--ckpt random --w8a8` on the RGB photo
+     `demo/real_input.png` (native matting) and the ASCII PLY
+     `artifacts/real_photo/real_input_fitted_mesh.ply` (MICA alignment,
+     coarse conditioner) with the same checks; (d) the W8A8 drift: a bf16
+     and a W8A8 avatar of `Config()`'s seeded weights on the same noise
+     draws (seed 7, 50 steps), the latent relative L2 per step and the
+     final images' PSNR gated (<= 0.0505, >= 37 dB: twice the JAX study's
+     error), both avatars timed, and the int8 convs' device time in one
+     profiled W8A8 step;
+  9. print the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Fp32 references on the card run with TF32 off: both
@@ -85,13 +106,16 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -123,6 +147,19 @@ NOISE_FACTOR = 2.0
 # the kernels' bf16 step may sit at most this much further from the fp32
 # model than the plain versions' bf16 step does (both measured ~2.2e-2)
 STEP_VS_FP32_RATIO = 1.25
+# phase 8: the generate_face CLI's documented inputs, the fine grid that
+# demo/mesh.obj crops to at 0.005 m, the other inputs, and the W8A8 drift
+# gate: twice the JAX study's error (artifacts/int8_trajectory.json: final
+# latent relative L2 0.02525, final-image PSNR 43.03 dB), its weights not
+# being these
+ROOT = Path(__file__).resolve().parent
+CLI_INPUT, CLI_MESH = str(ROOT / "demo/input.png"), str(ROOT / "demo/mesh.obj")
+CLI_FINE_GRID = (112, 120, 116)
+CLI_PHOTO = str(ROOT / "demo/real_input.png")
+CLI_PLY = str(ROOT / "artifacts/real_photo/real_input_fitted_mesh.ply")
+CLI_CONFIG = str(ROOT / "configs/facescape.yaml")
+W8A8_SEED, W8A8_STEPS = 7, 50
+W8A8_MAX_REL_L2, W8A8_MIN_PSNR = 0.0505, 37.0
 
 
 def log(msg: str) -> None:
@@ -192,12 +229,14 @@ def flagship_batch(cfg, device, seed: int = 0, B: int = 1, with_targets: bool = 
             for k, v in arrays.items()}
 
 
-def serving_model(cfg, device, seed: int = 0):
+def serving_model(cfg, device, seed: int = 0, cast: bool = True):
+    """The model of `cfg` with seeded weights, cast for serving unless
+    cast=False (fp32 weights)."""
     from morphablediffusion_torch.models.diffusion import MorphableDiffusion
     from morphablediffusion_torch.weights import cast_for_serving, seeded_params
 
-    model = MorphableDiffusion(cfg.model, device=device)
-    return cast_for_serving(seeded_params(model, seed)).eval()
+    model = seeded_params(MorphableDiffusion(cfg.model, device=device), seed)
+    return (cast_for_serving(model) if cast else model).eval()
 
 
 def main_path_shapes(cfg):
@@ -1062,7 +1101,8 @@ def kernel_group(name: str) -> str:
 def profile_report(label: str, step, top: int = 15):
     """Run step() once as a warm-up, once unprofiled and once under
     torch.profiler; print the device's busy and idle share of the
-    unprofiled step and its kernel time by group and by name."""
+    unprofiled step and its kernel time by group and by name. Returns the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -1098,6 +1138,7 @@ def profile_report(label: str, step, top: int = 15):
         log(f"  {ms:9.3f} ms {ms / busy:6.1%}  {gname}")
     for name, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"  {ms:9.3f} ms x{c:<4d} {name[:110]}")
+    return prof
 
 
 # gradient leaves compared between the kernels and the plain versions: K1's
@@ -1356,6 +1397,273 @@ def other_configs():
     return {"thuman": thuman, "fine": fine, "spatial_volume": spatial}
 
 
+def cli_entry():
+    """Phase 8's way into the CLI: `main([...])` where PIL and PyYAML import
+    (the CLI reads images and the YAML config with them), else `run(...)`."""
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "yaml")}
+    use_main = all(have.values())
+    log(f"phase 8 PIL/PyYAML probe: {have}: the CLI through "
+        f"{'main([...]), as a user runs it' if use_main else 'run(...) with Config()'}")
+    return use_main
+
+
+def cli_avatar(use_main: bool, out: Path, image: str, mesh: str, ckpt: str, extra=()):
+    """One avatar of the generate_face CLI: main(argv) writing into `out`,
+    or, without PIL or PyYAML, run(...) on Config() with flagship_batch's
+    input image (the flags of `extra` that matter there applied by hand).
+    Returns (views, report)."""
+    from morphablediffusion_torch.apps import generate_face as gf
+
+    if use_main:
+        return gf.main(["--input_img", image, "--mesh", mesh, "--cfg", CLI_CONFIG,
+                        "--ckpt", ckpt, "--output_dir", str(out), *extra])
+    from morphablediffusion_torch.utils.config import Config
+    from morphablediffusion_torch.utils.mesh_io import load_mesh_vertices
+    from morphablediffusion_torch.utils.torch_import import load_torch_state_dict
+
+    cfg = Config()
+    cfg.model.unet.w8a8 = "--w8a8" in extra
+    verts = load_mesh_vertices(mesh)
+    if "--no_mica_alignment" not in extra:
+        verts = gf.align_mica_mesh(verts)
+    state_dict = None
+    if ckpt.endswith(gf.REFERENCE_SUFFIXES):
+        state_dict = load_torch_state_dict(ckpt)
+        gf.autoselect_fine_conditioner(cfg.model, state_dict, verts)
+    Ks, RTs = gf.generate_camera_trajectory(cfg.model.view_num)
+    img = flagship_batch(cfg, "cpu")["input_image"][0].numpy()
+    return gf.run(cfg, img, Ks, RTs, verts, ckpt, state_dict=state_dict)
+
+
+def port_name(path: str) -> str:
+    """flax path below 'params' -> the port's parameter name."""
+    parts = path.split("/")
+    leaf = {"kernel": "weight", "scale": "weight"}.get(parts[-1], parts[-1])
+    return ".".join(parts[:-1] + [leaf])
+
+
+def write_cli_checkpoint(device, path: Path):
+    """Phase 8 (a): the fine model (grid cropped to demo/mesh.obj) with seeded
+    weights (seed 0), exported as a flagship-width reference-named fp16
+    checkpoint; the importer must give back every tensor of the file as the
+    fp16-rounded seeded one and leave every other parameter as it is.
+    Returns (tensors in the file, the model's GroupNorm census per avatar,
+    the fine model's config)."""
+    from morphablediffusion_torch.apps import generate_face as gf
+    from morphablediffusion_torch.utils import torch_import as ti
+    from morphablediffusion_torch.utils.config import Config
+    from morphablediffusion_torch.utils.mesh_io import load_mesh_vertices
+    from morphablediffusion_torch.weights import cast_for_serving
+
+    cfg = Config()
+    verts = load_mesh_vertices(CLI_MESH)
+    gf.autoselect_fine_conditioner(cfg.model, {"spatial_volume.xyzc_net.": None}, verts)
+    if tuple(cfg.model.fine_grid_shape) != CLI_FINE_GRID:
+        raise AssertionError(f"fine grid {cfg.model.fine_grid_shape} != {CLI_FINE_GRID}")
+    t0 = time.perf_counter()
+    model = serving_model(cfg, device, seed=0, cast=False)
+    seeded = {n: p.detach().clone() for n, p in model.named_parameters()}
+    t1 = time.perf_counter()
+    n = ti.export_torch_checkpoint(model, path, dtype=torch.float16)
+    t2 = time.perf_counter()
+    state_dict = ti.load_torch_state_dict(path)
+    report = ti.import_state_dict(state_dict, model, clip_layers=cfg.model.clip.layers)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    mapped = {port_name(opath) for tkey, opath, _ in
+              ti.full_mapping(cfg.model.clip.layers) + ti.xyzc_mapping() if tkey in state_dict}
+    del state_dict
+    bad = [name for name, p in model.named_parameters()
+           if not torch.equal(p, seeded[name].half().float() if name in mapped else seeded[name])]
+    log(f"phase 8 (a) checkpoint: {n} fp16 tensors, {path.stat().st_size / 2**30:.2f} GiB "
+        f"({sum(p.numel() for p in seeded.values()) / 1e6:.1f} M params; seeded fine model "
+        f"{t1 - t0:.1f} s, export {t2 - t1:.1f} s, read and import {t3 - t2:.1f} s); import "
+        f"report: filled {report['filled']}, {len(report['unused_torch_keys'])} unused, "
+        f"{len(report['unmatched_model_paths'])} unmatched; imported parameters equal to the "
+        f"fp16-rounded seeded ones: {len(mapped) - len(set(bad) & mapped)} of {len(mapped)}, "
+        f"the others untouched: {len(seeded) - len(mapped) - len(set(bad) - mapped)} of "
+        f"{len(seeded) - len(mapped)}")
+    if (bad or report["filled"] != n or report["unused_torch_keys"]
+            or report["unmatched_model_paths"] or len(mapped) != n):
+        raise AssertionError(f"phase 8 (a): import report {report}, {n} tensors, parameters "
+                             f"that differ {bad[:5]}")
+    del seeded
+    census, _ = avatar_census(cast_for_serving(model).eval(), flagship_batch(cfg, device))
+    del model
+    torch.cuda.empty_cache()
+    return n, census, cfg
+
+
+def check_cli_avatar(label, cfg, views, report, launches, want, out: Optional[Path],
+                     stem: str, neus2: bool):
+    """Phase 8 (b), (c): launches, views, files and the CLI's seconds."""
+    N, S = cfg.model.view_num, cfg.model.image_size
+    finite = bool(np.isfinite(views).all())
+    spread = float(views.std())
+    log(f"{label}: seconds {', '.join(f'{k} {v:.3f}' for k, v in report['seconds'].items())} "
+        f"(sample by CUDA events, the first avatar of its process); conditioner "
+        f"{report['mesh_voxel_mode']} {report['fine_grid_shape']}, w8a8 {report['w8a8']}; "
+        f"views {views.shape} finite={finite} std={spread:.4f}; launches {launches} (expected "
+        f"{want})")
+    if views.shape != (N, S, S, 3) or not finite or not spread > 0:
+        raise AssertionError(f"{label}: views {views.shape} finite={finite} std={spread}")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches}, expected {want}")
+    if out is None:
+        return
+    from PIL import Image
+
+    strip = np.asarray(Image.open(out / f"{stem}_mesh.png"))
+    files = {"strip": strip.shape}
+    if neus2:
+        root = out / "neus2_data" / f"{stem}_mesh"
+        frames = json.loads((root / "transform.json").read_text())["frames"]
+        shapes = {np.asarray(Image.open(root / f["file_path"])).shape for f in frames}
+        files.update(frames=len(frames), views=shapes)
+        if len(frames) != N or shapes != {(S, S, 4)}:
+            raise AssertionError(f"{label}: NeuS2 data {files}")
+    log(f"  files: {files}")
+    if strip.shape != (S, S * (N + 1), 3):
+        raise AssertionError(f"{label}: strip {strip.shape}")
+
+
+@contextlib.contextmanager
+def int8_conv_ranges():
+    """Mark every W8A8 conv as a profiler range `conv2d_w8a8` (for the one
+    profiled W8A8 step only; the port has no such marks)."""
+    from torch.profiler import record_function
+
+    from morphablediffusion_torch.ops import int8 as q8
+
+    conv = q8.conv2d_w8a8
+
+    def marked(*args, **kwargs):
+        with record_function("conv2d_w8a8"):
+            return conv(*args, **kwargs)
+
+    q8.conv2d_w8a8 = marked
+    try:
+        yield
+    finally:
+        q8.conv2d_w8a8 = conv
+
+
+def w8a8_drift(device):
+    """Phase 8 (d): a bf16 and a W8A8 avatar of Config()'s seeded weights on
+    the same noise draws (generator seed 7, 50 steps); the latent relative
+    L2 of every step and the PSNR of the final images as
+    tools/int8_trajectory.py computes them, gated; both avatars timed by
+    CUDA events; then one profiled W8A8 step (the int8 convs' device time)."""
+    from morphablediffusion_torch.ops import schedules
+    from morphablediffusion_torch.sampling import SyncDDIMSampler
+    from morphablediffusion_torch.utils.config import Config
+
+    cfg = Config()
+    cfg8 = copy.deepcopy(cfg)
+    cfg8.model.unet.w8a8 = True
+    batch = flagship_batch(cfg, device, seed=0)
+    trajs, images, seconds = {}, {}, {}
+    for tag, c in (("bf16", cfg), ("w8a8", cfg8)):
+        model = serving_model(c, device, seed=0)
+        sampler = SyncDDIMSampler(model, sample_steps=W8A8_STEPS)
+        gen = torch.Generator(device).manual_seed(W8A8_SEED)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        with torch.inference_mode():
+            prep = model.prepare_inference(batch)
+            _, traj = sampler.denoise_latents(batch, prep, cfg.model.cfg_scale, generator=gen,
+                                              collect_trajectory=True)
+            images[tag] = model.decode_views(traj[-1]).clamp(-1, 1).double().cpu()
+        ev1.record()
+        torch.cuda.synchronize()
+        seconds[tag] = ev0.elapsed_time(ev1) / 1e3
+        trajs[tag] = torch.stack(traj).double().cpu()
+        if tag == "w8a8":
+            m = model.cfg
+            g = torch.Generator(device).manual_seed(5)
+            shape = (1, m.view_num, m.latent_size, m.latent_size, 4)
+            x, noise = (torch.randn(shape, generator=g, device=device) for _ in range(2))
+            t = torch.full((1,), int(sampler.timesteps[25]), dtype=torch.int64, device=device)
+            with torch.inference_mode(), int8_conv_ranges():
+                prof = profile_report("phase 8 (d) one profiled W8A8 denoising step",
+                                      lambda: schedules.ddim_step(
+                                          x, model.predict_eps_cfg(
+                                              x, t, prep["clip_embed"], prep["x_input"],
+                                              prep["v_embed"], batch, m.cfg_scale),
+                                          25, sampler.ddim, noise))
+            marks = [e for e in prof.events() if e.name == "conv2d_w8a8"
+                     and e.device_type == torch.autograd.DeviceType.CPU]
+            int8_ms = sum(e.device_time_total for e in marks) / 1e3
+            mm_ms = sum(e.device_time_total for e in prof.events() if e.name == "aten::_int_mm"
+                        and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+            log(f"phase 8 (d) int8 convs in one W8A8 step: {len(marks)} calls, {int8_ms:.3f} ms "
+                f"of device time (quantize, im2col, _int_mm, dequantize), of which _int_mm "
+                f"{mm_ms:.3f} ms")
+        del model, sampler, prep
+        torch.cuda.empty_cache()
+    a, b = trajs["bf16"], trajs["w8a8"]
+    drift = ((a - b).flatten(1).pow(2).mean(1).sqrt() / a.flatten(1).pow(2).mean(1).sqrt())
+    psnr = float(10 * torch.log10(4.0 / (images["bf16"] - images["w8a8"]).pow(2).mean()))
+    final = float(drift[-1])
+    log(f"phase 8 (d) W8A8 drift, Config() seeded weights, seed {W8A8_SEED}, {W8A8_STEPS} "
+        f"steps: latent relative L2 per step {[round(float(d), 5) for d in drift]}; final "
+        f"{final:.5f} (gate {W8A8_MAX_REL_L2}; the JAX study 0.02525), final-image PSNR "
+        f"{psnr:.2f} dB (gate {W8A8_MIN_PSNR}; the JAX study 43.03); avatars (denoise and "
+        f"decode, CUDA events): bf16 {seconds['bf16']:.3f} s, W8A8 {seconds['w8a8']:.3f} s")
+    if not (final <= W8A8_MAX_REL_L2 and psnr >= W8A8_MIN_PSNR):
+        raise AssertionError(f"W8A8 drift {final:.5f} (> {W8A8_MAX_REL_L2}?) or PSNR "
+                             f"{psnr:.2f} dB (< {W8A8_MIN_PSNR}?)")
+
+
+def cli_phase(device, kernels, k1_shapes, k2_shape, serving_census):
+    """Phase 8: the generate_face CLI ((a) - (d) in the module docstring).
+    `serving_census` is phase 3's GroupNorm census of Config()'s avatar,
+    which the W8A8 CLI avatar shares (same shapes). Returns the fine
+    avatar's census for K4's check."""
+    from morphablediffusion_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    use_main = cli_entry()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "flagship_fine.ckpt"
+        n, fine_census, fine_cfg = write_cli_checkpoint(device, ckpt)
+        runs = (
+            ("phase 8 (b) the documented run", CLI_INPUT, CLI_MESH, str(ckpt),
+             ("--no_mica_alignment", "--prepare_neus2_data"), fine_cfg, fine_census),
+            ("phase 8 (c) photo, PLY, random weights, W8A8", CLI_PHOTO, CLI_PLY, "random",
+             ("--w8a8",), Config(), serving_census))
+        for label, image, mesh, ck, extra, cfg, census in runs:
+            out = tmp / label.split()[2].strip("()")
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            views, report = cli_avatar(use_main, out, image, mesh, ck, extra)
+            host_s = time.perf_counter() - t0
+            launches = {k.name: k.launches for k in kernels}
+            want = avatar_launches(kernels, cfg, k1_shapes, k2_shape, census)
+            log(f"{label}: {host_s:.2f} s host clock for the whole CLI call")
+            check_cli_avatar(label, cfg, views, report, launches, want,
+                             out if use_main else None,
+                             Path(image).stem, "--prepare_neus2_data" in extra)
+            if ck == str(ckpt):
+                imp = report["import"]
+                log(f"  import report: filled {imp['filled']} of the file's {n} tensors, "
+                    f"{len(imp['unused_torch_keys'])} unused, "
+                    f"{len(imp['unmatched_model_paths'])} unmatched; fine grid "
+                    f"{report['fine_grid_shape']}")
+                if (imp["filled"] != n or imp["unused_torch_keys"]
+                        or imp["unmatched_model_paths"]
+                        or report["fine_grid_shape"] != CLI_FINE_GRID
+                        or report["mesh_voxel_mode"] != "fine"):
+                    raise AssertionError(f"{label}: report {report}")
+            del views
+            torch.cuda.empty_cache()
+    w8a8_drift(device)
+    log(f"phase 8 the generate_face CLI: {time.perf_counter() - t_phase:.1f} s")
+    return fine_census
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1452,6 +1760,9 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
 
+    # 8. the generate_face CLI
+    censuses.append(("cli_fine", cli_phase(device, kernels, k1_shapes, k2_shape, gn_avatar)))
+
     # K4 (phase 2) at every GroupNorm call the censuses found
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1459,7 +1770,7 @@ def main() -> int:
     log(f"K4 vs plain at {len({k for _, c in censuses for k in c})} shapes: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 8. results
+    # 9. results
     train_run = f"training: {TRAIN_STEPS} steps of B={TRAIN_BATCH} ({train_ms:.2f} ms each)"
     per_step = {n: c // TRAIN_STEPS for n, c in train_launches.items()}
     serving = lambda name: (launches[name], "serving", "avatar")

@@ -1,8 +1,8 @@
 """Training CLI of the PyTorch port.
 
 Counterpart of the JAX package's `apps/train.py`: flags -b/-l/-n/-s/--resume/
---max_steps/--profile_steps, the step log line, a validation contact sheet
-every `val_check_interval` steps (the DDIM sampler with the config's
+--max_steps/--profile_steps/--finetune_from, the step log line, a validation
+contact sheet every `val_check_interval` steps (the DDIM sampler with the config's
 `batch_view_num`), rolling and snapshot checkpoints, the refusal to
 overwrite an existing run, and the final checkpoint. One card; `--device cpu`
 runs it on the CPU (a rehearsal at a tiny config).
@@ -10,8 +10,10 @@ runs it on the CPU (a rehearsal at a tiny config).
     python -m morphablediffusion_torch.apps.train -b configs/facescape.yaml \
         -l runs -n facescape [--resume] [--device cpu]
 
-Not ported yet: --finetune_from and --vae_from (ROADMAP A12), --rss_restart_gb
-(A12) and the THuman dataset (A10); each raises NotImplementedError.
+--finetune_from imports a reference checkpoint (`utils/torch_import.py`)
+over the seeded weights before step 0; it is ignored on --resume, whose
+checkpoint supersedes it. Not ported yet: --vae_from and --rss_restart_gb
+(ROADMAP A12b) and the THuman dataset (A10); each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -78,14 +80,14 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="default: the CUDA card (raises without one); 'cpu' "
                              "runs on the CPU")
-    parser.add_argument("--finetune_from", type=str, default="", help="not ported (A12)")
-    parser.add_argument("--vae_from", type=str, default="", help="not ported (A12)")
-    parser.add_argument("--rss_restart_gb", type=float, default=0.0, help="not ported (A12)")
+    parser.add_argument("--finetune_from", type=str, default="",
+                        help="reference .ckpt/.pt/.pth to start from (ignored on --resume)")
+    parser.add_argument("--vae_from", type=str, default="", help="not ported (A12b)")
+    parser.add_argument("--rss_restart_gb", type=float, default=0.0, help="not ported (A12b)")
     flags = parser.parse_args(argv)
-    for flag, item in (("finetune_from", "A12"), ("vae_from", "A12"),
-                       ("rss_restart_gb", "A12")):
+    for flag in ("vae_from", "rss_restart_gb"):
         if getattr(flags, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP {item})")
+            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP A12b)")
 
     from morphablediffusion_torch.data.loader import PrefetchLoader
     from morphablediffusion_torch.sampling import SyncDDIMSampler
@@ -109,6 +111,10 @@ def main(argv=None):
     trainer = Trainer(cfg, device=device)
     if flags.resume and ckpt.latest_step() is not None:
         print(f"resumed from step {ckpt.restore(trainer)}")
+    elif flags.finetune_from:
+        from morphablediffusion_torch.utils.torch_import import import_torch_checkpoint
+
+        import_torch_checkpoint(flags.finetune_from, trainer.model)
     loader = PrefetchLoader(train_ds, cfg.data.batch_size, seed=cfg.data.seed,
                             num_workers=cfg.data.num_workers)
     val_loader = PrefetchLoader(val_ds, cfg.model.output_num, shuffle=False,

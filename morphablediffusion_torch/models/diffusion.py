@@ -48,13 +48,11 @@ TrainingDraws = Dict[str, torch.Tensor]
 
 class MorphableDiffusion(nn.Module):
     """The model. `device` defaults to the CUDA card and raises without one;
-    pass device="cpu" to run on the CPU. W8A8 serving (unet.w8a8) is not
-    ported yet."""
+    pass device="cpu" to run on the CPU. `cfg.unet.w8a8` serves the UNet's
+    internal convs W8A8 (serving only)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.unet.w8a8:
-            raise NotImplementedError("the port does not run unet.w8a8 yet")
         dev = resolve_device(device)
         self.cfg = cfg
         dtype = torch_dtype(cfg.dtype)
@@ -86,7 +84,7 @@ class MorphableDiffusion(nn.Module):
             self.unet = DepthWiseUNet(
                 u.in_channels, u.model_channels, u.out_channels, u.num_res_blocks,
                 u.attention_ds, u.channel_mult, u.num_heads, u.transformer_depth,
-                u.context_dim, u.volume_dims, dtype)
+                u.context_dim, u.volume_dims, dtype, w8a8=u.w8a8)
 
     @property
     def device(self) -> torch.device:

@@ -15,6 +15,8 @@ Numerics kept from the JAX package:
   * GEGLU uses the tanh GELU (flax `nn.gelu` default).
   * `attention` takes the Hopper flash kernel exactly where the JAX code takes
     Pallas flash: min(Lq, Lk) >= 1024 with both divisible by 1024.
+  * `int8=True` convs (the JAX package's `Conv8`) serve W8A8 (`ops.int8`)
+    with the same parameters, so every checkpoint loads unchanged.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 
 from morphablediffusion_torch.ops import flash_attention as flash
 from morphablediffusion_torch.ops import group_norm as gn
+from morphablediffusion_torch.ops import int8 as q8
 
 
 class Linear(nn.Linear):
@@ -51,15 +54,35 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d computing in `dtype`; padding defaults to (k-1)//2."""
+    """nn.Conv2d computing in `dtype`; padding defaults to (k-1)//2.
+
+    int8=True serves it W8A8 (the JAX package's Conv8): the weight as it is
+    stored (bf16 once cast for serving) is quantized once per load and kept
+    (`quantized_weight`), the input on every call."""
 
     def __init__(self, cin, cout, kernel=3, stride=1, padding=None, bias=True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8=False):
         pad = (kernel - 1) // 2 if padding is None else padding
         super().__init__(cin, cout, kernel, stride=stride, padding=pad, bias=bias)
         self.dtype = dtype
+        self.int8 = int8
+        self._quantized = None  # (weight version key, int8 weight, scales)
+
+    @torch.no_grad()
+    def quantized_weight(self):
+        """(int8 weight, fp32 per-channel scales) of the current weight,
+        recomputed only after the weight was loaded, cast or moved."""
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._quantized is None or self._quantized[0] != key:
+            self._quantized = (key, *q8.quantize_weight_per_channel(w.detach()))
+        return self._quantized[1:]
 
     def forward(self, x):
+        if self.int8:
+            w8, sw = self.quantized_weight()
+            return q8.conv2d_w8a8(x, w8, sw, self.bias, self.stride[0], self.padding[0],
+                                  out_dtype=self.dtype)
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         return self._conv_forward(x.to(dt), self.weight.to(dt), b)
@@ -138,9 +161,9 @@ def nearest_upsample_2d(x):
 class Upsample(nn.Module):
     """Nearest 2x + 3x3 conv."""
 
-    def __init__(self, channels, dtype=torch.float32):
+    def __init__(self, channels, dtype=torch.float32, int8=False):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, dtype=dtype)
+        self.conv = Conv2d(channels, channels, 3, dtype=dtype, int8=int8)
 
     def forward(self, x):
         return self.conv(nearest_upsample_2d(x))
@@ -149,9 +172,9 @@ class Upsample(nn.Module):
 class Downsample(nn.Module):
     """Stride-2 3x3 conv."""
 
-    def __init__(self, channels, dtype=torch.float32):
+    def __init__(self, channels, dtype=torch.float32, int8=False):
         super().__init__()
-        self.op = Conv2d(channels, channels, 3, stride=2, dtype=dtype)
+        self.op = Conv2d(channels, channels, 3, stride=2, dtype=dtype, int8=int8)
 
     def forward(self, x):
         return self.op(x)
@@ -159,17 +182,17 @@ class Downsample(nn.Module):
 
 class ResBlock(nn.Module):
     """GN(32)+SiLU -> conv3x3 -> +emb_proj(silu(emb)) folded into GN+SiLU ->
-    conv3x3, with a 1x1 (or identity) skip."""
+    conv3x3, with a 1x1 (or identity) skip; int8 serves the convs W8A8."""
 
-    def __init__(self, cin, cout, emb_dim, dtype=torch.float32):
+    def __init__(self, cin, cout, emb_dim, dtype=torch.float32, int8=False):
         super().__init__()
         self.norm_in = GroupNorm(32, cin, act="silu")
-        self.conv_in = Conv2d(cin, cout, 3, dtype=dtype)
+        self.conv_in = Conv2d(cin, cout, 3, dtype=dtype, int8=int8)
         self.emb_proj = Linear(emb_dim, cout, dtype=dtype)
         self.norm_out = GroupNorm(32, cout, act="silu")
-        self.conv_out = Conv2d(cout, cout, 3, dtype=dtype)
+        self.conv_out = Conv2d(cout, cout, 3, dtype=dtype, int8=int8)
         if cin != cout:
-            self.skip = Conv2d(cin, cout, 1, padding=0, dtype=dtype)
+            self.skip = Conv2d(cin, cout, 1, padding=0, dtype=dtype, int8=int8)
         else:
             self.skip = None
 
@@ -256,19 +279,19 @@ class BasicTransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     """GN(32, eps 1e-6) -> 1x1 in -> transformer blocks on (B, HW, C) ->
-    1x1 out + skip. x: (B, C, H, W)."""
+    1x1 out + skip (int8: both 1x1s W8A8). x: (B, C, H, W)."""
 
     def __init__(self, channels, num_heads, head_dim, depth, context_dim,
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8=False):
         super().__init__()
         inner = num_heads * head_dim
         self.depth = depth
         self.norm = GroupNorm(32, channels, epsilon=1e-6)
-        self.proj_in = Conv2d(channels, inner, 1, padding=0, dtype=dtype)
+        self.proj_in = Conv2d(channels, inner, 1, padding=0, dtype=dtype, int8=int8)
         for i in range(depth):
             self.add_module(f"block_{i}", BasicTransformerBlock(
                 inner, context_dim, num_heads, head_dim, dtype))
-        self.proj_out = Conv2d(inner, channels, 1, padding=0, dtype=dtype)
+        self.proj_out = Conv2d(inner, channels, 1, padding=0, dtype=dtype, int8=int8)
 
     def forward(self, x, context):
         B, C, H, W = x.shape

@@ -12,6 +12,11 @@ GroupNorm(relu) -> to_k/to_v -> `depth_attention`, kernel K3): the JAX
 package's training gate (`models/unet.py::_fused_ok`, W >= 8). On the card
 the kernels run inside autograd Functions; on the CPU their plain versions.
 
+`w8a8=True` serves the internal convs W8A8 (`ops.int8`): the ResBlocks',
+Up/Downsample's, the SpatialTransformers' 1x1s and the DepthTransformers'
+proj_in and proj_out convs; `input_conv` and `out_conv` stay in `dtype`.
+The parameters are the same, so every checkpoint loads unchanged.
+
 `remat=True` (the config's `use_checkpoint`) recomputes every ResBlock,
 SpatialTransformer and DepthTransformer in the backward pass
 (`torch.utils.checkpoint`, non-reentrant). It is separate from `train`.
@@ -77,23 +82,25 @@ class DepthTransformer(nn.Module):
     x: (B, in_ch, H, W); context: (Bc, ctx_dim, D, H, W) with Bc == B, or
     Bc == B/2 under the CFG-doubled contract (`cfg_doubled=True`: the second
     half of x is the unconditional branch, whose context is all zeros).
+    int8 serves proj_in_conv and the proj_out convs W8A8.
     """
 
     def __init__(self, num_heads, head_dim, in_channels, out_channels, ctx_dim,
-                 dtype=torch.float32):
+                 dtype=torch.float32, int8=False):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads = num_heads
         self.inner = inner
-        self.proj_in_conv = Conv2d(in_channels, inner, 1, padding=0, dtype=dtype)
+        self.proj_in_conv = Conv2d(in_channels, inner, 1, padding=0, dtype=dtype, int8=int8)
         self.proj_in_norm = GroupNorm(8, inner, act="silu")
         self.proj_context_conv = Linear(ctx_dim, ctx_dim, bias=False, dtype=dtype)
         self.proj_context_norm = GroupNorm(8, ctx_dim, act="relu")
         self.depth_attn = DepthAttention(num_heads, head_dim, ctx_dim, dtype)
         self.proj_out_norm0 = GroupNorm(8, inner, act="relu")
-        self.proj_out_conv0 = Conv2d(inner, inner, 3, bias=False, dtype=dtype)
+        self.proj_out_conv0 = Conv2d(inner, inner, 3, bias=False, dtype=dtype, int8=int8)
         self.proj_out_norm1 = GroupNorm(8, inner, act="relu")
-        self.proj_out_conv1 = Conv2d(inner, out_channels, 3, bias=False, dtype=dtype)
+        self.proj_out_conv1 = Conv2d(inner, out_channels, 3, bias=False, dtype=dtype,
+                                     int8=int8)
 
     def forward(self, x, context, cfg_doubled: bool = False, train: bool = False,
                 moments=None):
@@ -149,7 +156,7 @@ class DepthWiseUNet(nn.Module):
                  channel_mult: Sequence[int] = (1, 2, 4, 4), num_heads=8,
                  transformer_depth=1, context_dim=768,
                  volume_dims: Sequence[int] = (64, 128, 256, 512),
-                 dtype=torch.float32):
+                 dtype=torch.float32, w8a8: bool = False):
         super().__init__()
         mc = model_channels
         self.model_channels = mc
@@ -160,13 +167,16 @@ class DepthWiseUNet(nn.Module):
         self.time_embed = TimestepMLP(mc, mc * 4, dtype)
         emb = mc * 4
 
+        def res(cin, cout):
+            return ResBlock(cin, cout, emb, dtype, int8=w8a8)
+
         def st(ch):
             return SpatialTransformer(ch, num_heads, ch // num_heads,
-                                      transformer_depth, context_dim, dtype)
+                                      transformer_depth, context_dim, dtype, int8=w8a8)
 
         def depth_tf(ctx_dim, cin, cout):
             # heads=4, dim_head=ctx//2
-            return DepthTransformer(4, ctx_dim // 2, cin, cout, ctx_dim, dtype)
+            return DepthTransformer(4, ctx_dim // 2, cin, cout, ctx_dim, dtype, int8=w8a8)
 
         self.input_conv = Conv2d(in_channels, mc, 3, dtype=dtype)
         hs = [mc]
@@ -174,22 +184,22 @@ class DepthWiseUNet(nn.Module):
         for level, mult in enumerate(self.channel_mult):
             ch = mult * mc
             for _ in range(num_res_blocks):
-                self.add_module(f"in_{block}_res", ResBlock(ch_in, ch, emb, dtype))
+                self.add_module(f"in_{block}_res", res(ch_in, ch))
                 if ds in self.attention_ds:
                     self.add_module(f"in_{block}_attn", st(ch))
                 ch_in = ch
                 hs.append(ch)
                 block += 1
             if level != len(self.channel_mult) - 1:
-                self.add_module(f"in_{block}_down", Downsample(ch, dtype))
+                self.add_module(f"in_{block}_down", Downsample(ch, dtype, int8=w8a8))
                 hs.append(ch)
                 block += 1
                 ds *= 2
 
         ch = self.channel_mult[-1] * mc
-        self.mid_res0 = ResBlock(ch_in, ch, emb, dtype)
+        self.mid_res0 = res(ch_in, ch)
         self.mid_attn = st(ch)
-        self.mid_res1 = ResBlock(ch, ch, emb, dtype)
+        self.mid_res1 = res(ch, ch)
         self.middle_conditions = depth_tf(volume_dims[MIDDLE_COND_CTX], ch, ch)
         ch_in = ch
 
@@ -198,12 +208,11 @@ class DepthWiseUNet(nn.Module):
         for level, mult in list(enumerate(self.channel_mult))[::-1]:
             ch = mult * mc
             for i in range(num_res_blocks + 1):
-                self.add_module(f"out_{block}_res",
-                                ResBlock(ch_in + hs.pop(), ch, emb, dtype))
+                self.add_module(f"out_{block}_res", res(ch_in + hs.pop(), ch))
                 if ds in self.attention_ds:
                     self.add_module(f"out_{block}_attn", st(ch))
                 if level and i == num_res_blocks:
-                    self.add_module(f"out_{block}_up", Upsample(ch, dtype))
+                    self.add_module(f"out_{block}_up", Upsample(ch, dtype, int8=w8a8))
                     ds //= 2
                 if block in OUT_COND_CTX:
                     cd = volume_dims[OUT_COND_CTX[block]]

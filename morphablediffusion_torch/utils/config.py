@@ -33,8 +33,9 @@ class UNetConfig:
     # use_checkpoint, configs/facescape.yaml unet_config); inference never
     # rematerializes regardless.
     use_checkpoint: bool = True
-    # W8A8 int8 serving of the UNet's internal convs in the JAX package; not
-    # ported yet (MorphableDiffusion raises when it is set)
+    # W8A8 int8 serving of the UNet's internal convs (ops/int8.py): ResBlocks,
+    # Up/Downsample, SpatialTransformer 1x1s, DepthTransformer projections;
+    # input_conv and out_conv stay in the compute dtype. Parameters unchanged.
     w8a8: bool = False
 
 

@@ -127,22 +127,44 @@ def cast_for_serving(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     return model
 
 
+def _jax_leaf(module: nn.Module, leaf: str, a: np.ndarray):
+    """A port parameter's leaf name and array (port layout) -> the flax leaf
+    name and the array in the JAX layout (a view where it can be)."""
+    if leaf == "weight" and isinstance(module, NORM_MODULES):
+        return "scale", a
+    if leaf == "weight" and isinstance(module, nn.ConvTranspose3d):
+        return "kernel", a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
+    if leaf == "weight" and isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+        return "kernel", a.transpose(tuple(range(2, a.ndim)) + (1, 0))
+    return leaf, a
+
+
+def _jax_paths(model: nn.Module, names, arrays):
+    """{flax path below 'params': JAX-layout view} of the named arrays."""
+    modules = dict(model.named_modules())
+    out = {}
+    for name, a in zip(names, arrays):
+        mod_name, _, leaf = name.rpartition(".")
+        leaf, a = _jax_leaf(modules[mod_name], leaf, a)
+        parts = mod_name.split(".") if mod_name else []
+        out["/".join(parts + [leaf])] = a
+    return out
+
+
 def to_jax_layout(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """{port parameter name: tensor shaped like that parameter} (parameters,
     gradients, AdamW moments) -> {flax path below 'params': fp32 numpy array
-    in the JAX layout}, the inverse of `from_jax_params`."""
-    modules = dict(model.named_modules())
-    out = {}
-    for name, t in tensors.items():
-        mod_name, _, leaf = name.rpartition(".")
-        module = modules[mod_name]
-        a = t.detach().float().cpu().numpy()
-        parts = mod_name.split(".") if mod_name else []
-        if leaf == "weight" and isinstance(module, NORM_MODULES):
-            leaf = "scale"
-        elif leaf == "weight" and isinstance(module, nn.ConvTranspose3d):
-            a, leaf = a.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1], "kernel"
-        elif leaf == "weight" and isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d)):
-            a, leaf = a.transpose(tuple(range(2, a.ndim)) + (1, 0)), "kernel"
-        out["/".join(parts + [leaf])] = np.ascontiguousarray(a)
-    return out
+    in the JAX layout}, the inverse of `from_jax_params`. The arrays are
+    views (transposed, or flipped) of one fp32 host copy per tensor, so the
+    export's transposes back to the torch layout copy nothing."""
+    arrays = [t.detach().float().cpu().numpy() for t in tensors.values()]
+    return _jax_paths(model, tensors.keys(), arrays)
+
+
+def jax_shapes(model: nn.Module) -> Dict[str, tuple]:
+    """{flax path below 'params': shape in the JAX layout} of every parameter
+    of `model`: the template a partial load (`utils.torch_import`) checks
+    against, without copying any parameter."""
+    names, params = zip(*model.named_parameters())
+    dummies = [np.broadcast_to(np.float32(0), p.shape) for p in params]
+    return {k: a.shape for k, a in _jax_paths(model, names, dummies).items()}

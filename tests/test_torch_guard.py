@@ -6,9 +6,11 @@
     tiny parameter tree of the served model;
   * the entry points raise without a CUDA card unless the CPU is asked for;
   * `chip_smoke.py` fails without a card and prints no result, and the main
-    path it counts launches on is the one the issue pins (500 + 250).
+    path it counts launches on is the serving avatar's (500 + 250), also
+    through the generate_face CLI (phase 8).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -45,10 +47,14 @@ def test_package_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'morphablediffusion_tpu'))\n"
-        "print('BAD', bad)\n")
+        "print('BAD', bad)\n"
+        "print('MODULES', sorted(n for n in sys.modules if n.startswith(p.__name__)))\n")
     r = _run(code)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
+    for name in ("apps.generate_face", "apps.train", "ops.int8", "preprocessing.matting",
+                 "utils.mesh_io", "utils.torch_import"):
+        assert f"'morphablediffusion_torch.{name}'" in r.stdout, name
 
 
 def test_no_file_names_the_jax_package():
@@ -113,6 +119,24 @@ def test_chip_smoke_main_path_counts():
     assert {n: 50 * c for n, c in chip_smoke.k1_launches(k1).items()} == {
         "depth_attention_ctx_wgmma": 350, "depth_attention_ctx_cluster": 150,
         "depth_attention_ctx": 0}
+    # phase 8, the generate_face CLI: demo/mesh.obj selects the fine grid
+    # (112, 120, 116) at 0.005 m, whose avatar launches K1 and K2 as the
+    # main path does; the W8A8 drift gate is twice the JAX study's error
+    from morphablediffusion_torch.apps.generate_face import autoselect_fine_conditioner
+    from morphablediffusion_torch.utils.mesh_io import load_mesh_vertices
+
+    fine = port_config.Config()
+    assert autoselect_fine_conditioner(fine.model, {"spatial_volume.xyzc_net.w": None},
+                                       load_mesh_vertices(REPO / chip_smoke.CLI_MESH))
+    assert tuple(fine.model.fine_grid_shape) == chip_smoke.CLI_FINE_GRID == (112, 120, 116)
+    assert chip_smoke.main_path_shapes(fine) == (k1, k2)
+    study = json.loads((REPO / "artifacts" / "int8_trajectory.json").read_text())
+    assert chip_smoke.W8A8_MAX_REL_L2 == pytest.approx(2 * study["final_rel_l2"], abs=1e-6)
+    assert chip_smoke.W8A8_MIN_PSNR == 37.0 < study["final_image_psnr_bf16_vs_w8a8"]
+    assert (chip_smoke.W8A8_SEED, chip_smoke.W8A8_STEPS) == (study["seed"], study["sample_steps"])
+    for path in (chip_smoke.CLI_INPUT, chip_smoke.CLI_MESH, chip_smoke.CLI_PHOTO,
+                 chip_smoke.CLI_PLY, chip_smoke.CLI_CONFIG):
+        assert (REPO / path).is_file(), path
 
 
 def test_chip_smoke_training_counts():

@@ -136,7 +136,7 @@ def test_train_cli_on_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="--resume"):
         train.main(args)
     with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        train.main(args + ["--finetune_from", "x.ckpt"])
+        train.main(args + ["--vae_from", "x"])
     r = run("--resume", "--max_steps", "2")
     assert r.returncode == 0, r.stderr[-3000:]
     assert "resumed from step 1" in r.stdout and "step 2 loss" in r.stdout
