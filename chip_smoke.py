@@ -35,7 +35,7 @@ Phases (any failure exits non-zero):
      (cluster size, tile or pack, grid, shared memory) and the clusters the
      card holds at once (cudaOccupancyMaxActiveClusters). K4 (GroupNorm)
      is held the same way at every GroupNorm call that the censuses of
-     phases 3, 6, 7 and 8 find, after phase 8 (also no further than 4.97e-5,
+     phases 3, 6, 7, 8 and 9 find, after phase 9 (also no further than 4.97e-5,
      the two-launch design's largest), with its device time beside its yardstick's
      (F.group_norm and the activation) at every shape and summed per avatar
      and per training step, the largest span, and at the widest spans the
@@ -92,7 +92,34 @@ Phases (any failure exits non-zero):
      final images' PSNR gated (<= 0.0505, >= 37 dB: twice the JAX study's
      error), both avatars timed, and the int8 convs' device time in one
      profiled W8A8 step;
-  9. print the kernels line, the card line, and as the last line
+  9. training complete: (a) the port's synthetic FaceScape tool writes a
+     tree of 5 subjects x 2 expressions x 16 views at 128^2; (b)
+     `apps/train_vae.py` through `main([...])` at the CLI's defaults (ch 32,
+     mult 1,2,2,4, one block, 128^2, batch 16) for 40 steps: ms/step, the
+     loss finite and falling, K4 once per GroupNorm call of the step's census
+     (one channel a group included) and no other kernel, the JAX meta keys,
+     and decode(encode(x)) unchanged by the latent fold (fp32, relative L2
+     1e-4) with z * 0.18215 about unit-variance; (c) `apps/train.py` through
+     `main([...])` on a copy of `configs/synth_scratch.yaml` on that tree with
+     `--vae_from` the file of (b), 4 steps and the validation avatar at the
+     last: launches per training step (K1 by design at W=8, K3 at W=16, 4
+     and 2, K2 none: its L=256 takes SDPA) and of the avatar (K1 at W=8 and
+     W=4, the latter in the WMMA design; K3 at W=16 and 2), K4 once per
+     GroupNorm call, the first stage equal to the file's tensors, the contact
+     sheet not constant; (d) full-width training under THuman, the fine
+     conditioner and `use_spatial_volume` (batch 8, remat, seeded weights, a
+     synthetic batch; under the fine conditioner one loss and backward with
+     the kernels, the plain versions and the fp32 model, the kernels' loss,
+     grad norm and named leaves (the xyzc net's too) no further from the
+     fp32 model than 1.25x the plain versions' plus phase 6's floors: its
+     plain versions are deterministic, so phase 6's plain-vs-plain gap is
+     0 there): 1 warm-up
+     and 3 timed `Trainer.train_step`s, ms/step, samples/s, peak memory,
+     launches per step asserted, the loss finite and the parameters moved;
+     (e) before (c), phase 2 at synth_scratch's new shapes (K1 at W=8 and 4,
+     K3 at W=16, 4 and 2), and K4's check below takes the censuses of (b),
+     (c) and (d);
+  10. print the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Fp32 references on the card run with TF32 off: both
@@ -239,26 +266,50 @@ def serving_model(cfg, device, seed: int = 0, cast: bool = True):
     return (cast_for_serving(model) if cast else model).eval()
 
 
+def depth_blocks(cfg, B: int, train: bool):
+    """The UNet's DepthTransformers of `cfg` by frustum width, narrowest
+    first: the width W, depth D, context and inner channels Cc and Ci, the
+    blocks per UNet call (per_step) and whether they take the fused chain
+    (K1) or the unfused one (K3) by `unet.fused_ok`; B samples a call."""
+    from morphablediffusion_torch.models.unet import MIDDLE_COND_CTX, OUT_COND_CTX, fused_ok
+
+    m = cfg.model
+    ctx_index = [MIDDLE_COND_CTX, *OUT_COND_CTX.values()]  # width latent >> index
+    blocks = []
+    for i in sorted(set(ctx_index), reverse=True):
+        W, Cc = m.latent_size >> i, m.unet.volume_dims[i]
+        blocks.append(dict(B=B, W=W, D=m.frustum_volume_depth >> i, Cc=Cc, Ci=2 * Cc,
+                           heads=4, per_step=ctx_index.count(i),
+                           fused=fused_ok(4, Cc // 2, W, W, train)))
+    return blocks
+
+
 def main_path_shapes(cfg):
     """The shapes the main path gives each kernel, with launches per step.
 
-    K1: every DepthTransformer of the UNet at serving; the frustum net halves
-    depth with width. K2: the self-attention of the SpatialTransformers at
-    ds=1 (L = latent^2 tokens), on the CFG-doubled batch."""
-    from morphablediffusion_torch.models.unet import MIDDLE_COND_CTX, OUT_COND_CTX
+    K1: every DepthTransformer of the UNet at serving that takes the fused
+    chain (under `Config()` all of them); the frustum net halves depth with
+    width. K2: the self-attention of the SpatialTransformers at ds=1 (L =
+    latent^2 tokens), on the CFG-doubled batch, where `flash_ok` takes it
+    (else per_step 0)."""
+    from morphablediffusion_torch.models.layers import flash_ok
 
     m, u = cfg.model, cfg.model.unet
-    B, lat = m.view_num, m.latent_size
-    ctx_index = [MIDDLE_COND_CTX, *OUT_COND_CTX.values()]  # width lat >> index
-    k1 = []
-    for i in sorted(set(ctx_index), reverse=True):
-        W, Cc = lat >> i, u.volume_dims[i]
-        k1.append(dict(B=B, W=W, D=m.frustum_volume_depth >> i, Cc=Cc, Ci=2 * Cc,
-                       heads=4, per_step=ctx_index.count(i)))
+    k1 = [{k: v for k, v in s.items() if k != "fused"}
+          for s in depth_blocks(cfg, m.view_num, train=False) if s["fused"]]
+    L = m.latent_size ** 2
     ds1_transformers = (2 * u.num_res_blocks + 1) if 1 in u.attention_ds else 0
-    k2 = dict(B=2 * B, L=lat * lat, heads=u.num_heads,
-              hd=u.model_channels // u.num_heads, per_step=ds1_transformers)
+    k2 = dict(B=2 * m.view_num, L=L, heads=u.num_heads, hd=u.model_channels // u.num_heads,
+              per_step=ds1_transformers if flash_ok(L, L) else 0)
     return k1, k2
+
+
+def serving_k3_shapes(cfg, B: int):
+    """K3's shapes at serving (the conditional half of B samples a UNet
+    call): the DepthTransformers that take the unfused chain (none under
+    `Config()`)."""
+    return [dict(B=B, W=s["W"], D=s["D"], C=s["Ci"], heads=s["heads"], per_step=s["per_step"])
+            for s in depth_blocks(cfg, B, train=False) if not s["fused"]]
 
 
 def k1_cost(s):
@@ -625,20 +676,17 @@ def train_shapes(cfg, B: int):
     """The shapes the training path gives each kernel, with per_step its
     launches per training step: every forward twice under remat (the
     forward and its recompute in the backward pass). The DepthTransformers
-    of frustum width >= TRAIN_FUSED_MIN_WIDTH take K1, the others K3; K3's
-    other plain-path widths are checked too but do not run in training
-    (per_step 0). K2 and its backward kernels (bwd_per_step, once per ds=1
-    self-attention) see one target view per sample."""
-    from morphablediffusion_torch.models.unet import TRAIN_FUSED_MIN_WIDTH
-
-    m, u = cfg.model, cfg.model.unet
-    fwd = 2 if u.use_checkpoint else 1
-    serving_k1, serving_k2 = main_path_shapes(cfg)
-    k1 = [dict(s, B=B, per_step=fwd * s["per_step"]) for s in serving_k1
-          if s["W"] >= TRAIN_FUSED_MIN_WIDTH]
+    that `unet.fused_ok` fuses in training take K1, the others K3; K3's
+    other widths are checked too but do not run in training (per_step 0).
+    K2 and its backward kernels (bwd_per_step, once per ds=1 self-attention)
+    see one target view per sample."""
+    fwd = 2 if cfg.model.unet.use_checkpoint else 1
+    blocks = depth_blocks(cfg, B, train=True)
+    k1 = [dict({k: v for k, v in s.items() if k != "fused"}, per_step=fwd * s["per_step"])
+          for s in blocks if s["fused"]]
     k3 = [dict(B=B, W=s["W"], D=s["D"], C=s["Ci"], heads=s["heads"],
-               per_step=0 if s["W"] >= TRAIN_FUSED_MIN_WIDTH else fwd * s["per_step"])
-          for s in serving_k1]
+               per_step=0 if s["fused"] else fwd * s["per_step"]) for s in blocks]
+    serving_k2 = main_path_shapes(cfg)[1]
     k2 = dict(serving_k2, B=B, per_step=fwd * serving_k2["per_step"],
               bwd_per_step=serving_k2["per_step"])
     return dict(k1=k1, k3=k3, k2=k2)
@@ -662,6 +710,55 @@ def k2_bwd_cost(s, which: str):
     return 6 * B * H * L * L * hd, 2 * (4 * n + n) + stats
 
 
+def check_k3(shapes, device, rn, iters: int, path: str):
+    """K3 against `_reference` at each of `shapes` (one row each, tagged with
+    `path`), timed by CUDA events and on the device alone, with its plan and
+    the yardstick F.scaled_dot_product_attention over each pixel's D depths
+    (on tensors permuted beforehand). Returns the rows."""
+    from morphablediffusion_torch.ops import depth_attention as da
+    import torch.nn.functional as F
+
+    rows = []
+    k3_lib = ctypes.CDLL(str(da.DEPTH_KERNEL.lib_path()))
+    for s in shapes:
+        B, W, D, C, heads = s["B"], s["W"], s["D"], s["C"], s["heads"]
+        S, hd = W * W, C // heads
+        q, k, v = rn(B, C, W, W), rn(B, C, D, W, W), rn(B, C, D, W, W)
+        out, plain = da.attention_kernel(q, k, v, heads), da._reference(q, k, v, heads)
+        torch.cuda.synchronize()
+        err, mae = rel_l2(out, plain), float((out.float() - plain.float()).abs().max())
+        ms = cuda_ms(lambda: da.attention_kernel(q, k, v, heads), iters)
+        plain_ms = cuda_ms(lambda: da._reference(q, k, v, heads), max(2, iters // 4))
+        qs = q.reshape(B, heads, hd, S).permute(0, 3, 1, 2).reshape(B * S, heads, 1, hd)
+        kv = [t.reshape(B, heads, hd, D, S).permute(0, 4, 1, 3, 2).reshape(
+            B * S, heads, D, hd).contiguous() for t in (k, v)]
+        qs = qs.contiguous()
+        lib = F.scaled_dot_product_attention(qs, *kv).reshape(B, S, C).transpose(1, 2)
+        lib_err = rel_l2(lib.reshape(q.shape), plain)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, *kv), iters)
+        # the device's own time, the permutes above not counted
+        dev_ms, _ = device_ms(lambda: da.attention_kernel(q, k, v, heads))
+        lib_dev_ms, lib_names = device_ms(lambda: F.scaled_dot_product_attention(qs, *kv))
+        flops, nbytes = k3_cost(s)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        log(f"K3 depth_attention ({path}) W={W} D={D} C={C} B={B}: rel_l2={err:.3e} "
+            f"max_abs={mae:.3e} ms={ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
+            f"sdpa_ms={lib_ms:.4f} (device {lib_dev_ms:.4f}; {lib_names}) (sdpa rel_l2 "
+            f"{lib_err:.2e}) bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), {b_ms / dev_ms:.1%} of the bound on the device, "
+            f"device K3/SDPA {dev_ms / lib_dev_ms:.2f}, x{s['per_step']}/step; "
+            f"{k3_plan_line(s, k3_lib)}")
+        if not (err <= REL_L2_KERNEL and lib_err <= REL_L2_KERNEL):
+            raise AssertionError(f"K3 at W={W}: rel L2 {err:.3e} (sdpa {lib_err:.3e}) "
+                                 f"> {REL_L2_KERNEL}")
+        rows.append(dict(
+            shape=f"B={B},W={W},D={D},C={C}", path=path, per_step=s["per_step"],
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, flops=flops,
+            bytes=nbytes, rel_l2=err, max_abs_err=mae, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms))
+    return rows
+
+
 def check_train_kernels(shapes, device, iters: int = 10):
     """Phase 2 at the training path's shapes (`train_shapes`): K1's and K2's
     forward against their plain versions; K3 against `_reference` at every
@@ -670,53 +767,15 @@ def check_train_kernels(shapes, device, iters: int = 10):
     F.scaled_dot_product_attention (K2's forward), the same over each
     pixel's D depths (K3, on tensors permuted beforehand) and its backward
     (K2-dkv and K2-dq: the one call computes dq, dk and dv)."""
-    from morphablediffusion_torch.ops import depth_attention as da
     from morphablediffusion_torch.ops import flash_attention as fa
     import torch.nn.functional as F
 
     g = torch.Generator(device).manual_seed(1)
     rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=device) * std).bfloat16()
-    results = {"depth_attention": []}
-    k3_lib = ctypes.CDLL(str(da.DEPTH_KERNEL.lib_path()))
-
+    results = {}
     with torch.no_grad():
         results.update(check_k1(shapes["k1"], device, rn, iters, "training"))
-        for s in shapes["k3"]:
-            B, W, D, C, heads = s["B"], s["W"], s["D"], s["C"], s["heads"]
-            S, hd = W * W, C // heads
-            q, k, v = rn(B, C, W, W), rn(B, C, D, W, W), rn(B, C, D, W, W)
-            out, plain = da.attention_kernel(q, k, v, heads), da._reference(q, k, v, heads)
-            torch.cuda.synchronize()
-            err, mae = rel_l2(out, plain), float((out.float() - plain.float()).abs().max())
-            ms = cuda_ms(lambda: da.attention_kernel(q, k, v, heads), iters)
-            plain_ms = cuda_ms(lambda: da._reference(q, k, v, heads), max(2, iters // 4))
-            qs = q.reshape(B, heads, hd, S).permute(0, 3, 1, 2).reshape(B * S, heads, 1, hd)
-            kv = [t.reshape(B, heads, hd, D, S).permute(0, 4, 1, 3, 2).reshape(
-                B * S, heads, D, hd).contiguous() for t in (k, v)]
-            qs = qs.contiguous()
-            lib = F.scaled_dot_product_attention(qs, *kv).reshape(B, S, C).transpose(1, 2)
-            lib_err = rel_l2(lib.reshape(q.shape), plain)
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, *kv), iters)
-            # the device's own time, the permutes above not counted
-            dev_ms, _ = device_ms(lambda: da.attention_kernel(q, k, v, heads))
-            lib_dev_ms, lib_names = device_ms(lambda: F.scaled_dot_product_attention(qs, *kv))
-            flops, nbytes = k3_cost(s)
-            b_ms, b_by = bound_ms(flops, nbytes)
-            log(f"K3 depth_attention W={W} D={D} C={C} B={B}: rel_l2={err:.3e} "
-                f"max_abs={mae:.3e} ms={ms:.4f} (device {dev_ms:.4f}) plain_ms={plain_ms:.4f} "
-                f"sdpa_ms={lib_ms:.4f} (device {lib_dev_ms:.4f}; {lib_names}) (sdpa rel_l2 "
-                f"{lib_err:.2e}) bound_ms={b_ms:.5f} ({b_by}; {flops / 1e9:.3f} GFLOP, "
-                f"{nbytes / 1e6:.2f} MB), {b_ms / dev_ms:.1%} of the bound on the device, "
-                f"device K3/SDPA {dev_ms / lib_dev_ms:.2f}, x{s['per_step']}/step; "
-                f"{k3_plan_line(s, k3_lib)}")
-            if not (err <= REL_L2_KERNEL and lib_err <= REL_L2_KERNEL):
-                raise AssertionError(f"K3 at W={W}: rel L2 {err:.3e} (sdpa {lib_err:.3e}) "
-                                     f"> {REL_L2_KERNEL}")
-            results["depth_attention"].append(dict(
-                shape=f"B={B},W={W},D={D},C={C}", path="training", per_step=s["per_step"],
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, flops=flops,
-                bytes=nbytes, rel_l2=err, max_abs_err=mae, library_ms=lib_ms,
-                library_device_ms=lib_dev_ms))
+        results["depth_attention"] = check_k3(shapes["k3"], device, rn, iters, "training")
 
     s = shapes["k2"]
     B, L, heads, hd = s["B"], s["L"], s["heads"], s["hd"]
@@ -807,28 +866,26 @@ def check_train_kernels(shapes, device, iters: int = 10):
     return results
 
 
-def gn_census(model, fn):
-    """Every GroupNorm call that fn() makes in `model`, counted by (x shape,
-    dtype, groups, activation, shifted, eps). Forward pre-hooks: a forward
-    that remat reruns in the backward pass counts again, as it launches
-    again."""
+def gn_census(fn):
+    """Every GroupNorm call that fn() makes, in any model (one it builds
+    itself too), counted by (x shape, dtype, groups, activation, shifted,
+    eps): `GroupNorm.forward` wrapped for the call. A forward that remat
+    reruns in the backward pass counts again, as it launches again."""
     from morphablediffusion_torch.models.layers import GroupNorm
 
     counts = {}
+    forward = GroupNorm.forward
 
-    def hook(mod, args, kwargs):
-        x = args[0]
-        shifted = (args[1] if len(args) > 1 else kwargs.get("shift")) is not None
-        key = (tuple(x.shape), x.dtype, mod.num_groups, mod.act, shifted, mod.epsilon)
+    def counted(mod, x, shift=None):
+        key = (tuple(x.shape), x.dtype, mod.num_groups, mod.act, shift is not None, mod.epsilon)
         counts[key] = counts.get(key, 0) + 1
+        return forward(mod, x, shift)
 
-    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
-               for m in model.modules() if isinstance(m, GroupNorm)]
+    GroupNorm.forward = counted
     try:
         fn()
     finally:
-        for h in handles:
-            h.remove()
+        GroupNorm.forward = forward
     return counts
 
 
@@ -839,11 +896,11 @@ def avatar_census(model, batch):
     ({key: calls per avatar}, {key: calls per step})."""
     m = model.cfg
     with torch.inference_mode():
-        enc = gn_census(model, lambda: model.prepare_inference(batch))
+        enc = gn_census(lambda: model.prepare_inference(batch))
         prep = model.prepare_inference(batch)
-        step = gn_census(model, lambda: one_step(model, batch, prep=prep))
+        step = gn_census(lambda: one_step(model, batch, prep=prep))
         lat = torch.zeros((1, m.view_num, m.latent_size, m.latent_size, 4), device=model.device)
-        dec = gn_census(model, lambda: model.decode_views(lat))
+        dec = gn_census(lambda: model.decode_views(lat))
     avatar = {}
     for counts, times in ((enc, 1), (step, m.sample_steps), (dec, 1)):
         for k, n in counts.items():
@@ -1169,12 +1226,109 @@ def train_expected_launches(shapes):
             "flash_attention_bwd_dq": shapes["k2"]["bwd_per_step"]}
 
 
-def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup: int = 2):
-    """Phase 6: full-width training steps on the port's Trainer. `expected`
-    holds the launches per step of every kernel but K4's, whose come from
-    the GroupNorm census of the first warm-up step. Returns the launch
-    counts of the timed run, its ms per step, the peak memory and the
-    census."""
+def check_train_step_vs_fp32(label, loss_and_grads, fp32_loss_and_grads, leaves, n_train, t0):
+    """One bf16 training loss and backward with the kernels and with the
+    plain versions, and the fp32 model's on the same draws: the loss, the
+    global grad norm and each gradient leaf of `leaves` with the kernels
+    no further from the fp32 model than STEP_VS_FP32_RATIO x the plain
+    versions' distance plus phase 6's floor (the serving step's gate,
+    `step_check`). For a path whose plain versions are deterministic, where
+    phase 6's plain-vs-plain gap is 0 and leaves only its floor."""
+    loss_k, norm_k, leaves_k = loss_and_grads()
+    with plain_versions():
+        loss_p, norm_p, leaves_p = loss_and_grads()
+        loss_r, norm_r, leaves_r = loss_and_grads()
+    loss_f, norm_f, leaves_f = fp32_loss_and_grads()
+    rel = lambda a, b: abs(a - b) / abs(b)
+    gaps = {"loss": (rel(loss_k, loss_f), rel(loss_p, loss_f), REL_TRAIN_LOSS),
+            "grad norm": (rel(norm_k, norm_f), rel(norm_p, norm_f), REL_TRAIN_GRAD)}
+    gaps.update({n: (rel_l2(leaves_k[n], leaves_f[n]), rel_l2(leaves_p[n], leaves_f[n]),
+                     REL_TRAIN_LEAF) for n in leaves})
+    bad = {n: g for n, g in gaps.items() if not g[0] <= STEP_VS_FP32_RATIO * g[1] + g[2]}
+    log(f"{label} one training loss and backward, B={TRAIN_BATCH} ({n_train / 1e6:.1f} M "
+        f"trainable params) against the fp32 model: loss kernels {loss_k:.6f} plain "
+        f"{loss_p:.6f} fp32 {loss_f:.6f}; grad norm kernels {norm_k:.5f} plain {norm_p:.5f} "
+        f"fp32 {norm_f:.5f}; plain vs plain: loss rel {rel(loss_r, loss_p):.2e}, grad norm rel "
+        f"{rel(norm_r, norm_p):.2e} ({time.perf_counter() - t0:.1f} s)")
+    for n, (k, pl, floor) in gaps.items():
+        bound = STEP_VS_FP32_RATIO * pl + floor
+        vs_plain = rel_l2(leaves_k[n], leaves_p[n]) if n in leaves else 0.0
+        log(f"  vs fp32: kernels {k:.3e}, plain {pl:.3e} (bound {bound:.3e}); kernels vs plain "
+            f"{vs_plain:.3e}  {n}")
+    if bad or not math.isfinite(loss_k):
+        raise AssertionError(f"{label} training step against the fp32 model: {bad}")
+
+
+def check_train_step(label, loss_and_grads, leaves, n_train, t0):
+    """One bf16 training loss and backward with the kernels and twice with the
+    plain versions on the same draws: the loss, the global grad norm and the
+    gradient leaves named in `leaves`, each within NOISE_FACTOR x the gap
+    between the two plain runs plus its floor."""
+    loss_k, norm_k, leaves_k = loss_and_grads()
+    with plain_versions():
+        loss_p, norm_p, leaves_p = loss_and_grads()
+        # the plain versions once more: how far the nondeterministic
+        # backward alone moves the same numbers
+        loss_r, norm_r, leaves_r = loss_and_grads()
+    loss_gap = abs(loss_k - loss_p) / abs(loss_p)
+    norm_gap = abs(norm_k - norm_p) / norm_p
+    loss_bound = NOISE_FACTOR * abs(loss_r - loss_p) / abs(loss_p) + REL_TRAIN_LOSS
+    norm_bound = NOISE_FACTOR * abs(norm_r - norm_p) / norm_p + REL_TRAIN_GRAD
+    leaf_gap = {n: rel_l2(leaves_k[n], leaves_p[n]) for n in leaves}
+    leaf_noise = {n: rel_l2(leaves_r[n], leaves_p[n]) for n in leaves}
+    leaf_bound = {n: NOISE_FACTOR * leaf_noise[n] + REL_TRAIN_LEAF for n in leaves}
+    log(f"{label} one training loss and backward, B={TRAIN_BATCH} ({n_train / 1e6:.1f} M trainable "
+        f"params): loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {loss_gap:.2e}, bound "
+        f"{loss_bound:.2e}); grad norm kernels {norm_k:.5f} plain {norm_p:.5f} (rel "
+        f"{norm_gap:.2e}, bound {norm_bound:.2e}); plain again: loss rel "
+        f"{abs(loss_r - loss_p) / abs(loss_p):.2e}, grad norm rel "
+        f"{abs(norm_r - norm_p) / norm_p:.2e} ({time.perf_counter() - t0:.1f} s)")
+    for n, e in leaf_gap.items():
+        log(f"  grad rel_l2 kernels vs plain {e:.3e}, plain vs plain {leaf_noise[n]:.3e} "
+            f"(bound {leaf_bound[n]:.3e})  {n}")
+    if not (math.isfinite(loss_k) and loss_gap <= loss_bound and norm_gap <= norm_bound
+            and all(leaf_gap[n] <= leaf_bound[n] for n in leaves)):
+        raise AssertionError(f"{label} training step kernels vs plain: loss {loss_gap:.2e} (bound "
+                             f"{loss_bound:.2e}), grad norm {norm_gap:.2e} ({norm_bound:.2e}), "
+                             f"leaves {leaf_gap} (bounds {leaf_bound})")
+    del leaves_k, leaves_p, leaves_r
+
+
+def fp32_loss_and_grads(cfg, model, batch, draws, leaves):
+    """The training loss, global grad norm and `leaves`' gradients of the fp32
+    model (the same weights, fp32 compute, plain versions) on the same
+    draws; its VAE and CLIP take no gradient, as in the Trainer."""
+    from morphablediffusion_torch.models.diffusion import MorphableDiffusion
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.model.dtype = "float32"
+    model32 = MorphableDiffusion(cfg32.model, device=model.device).train()
+    model32.load_state_dict(model.state_dict())
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    for n, p in model32.named_parameters():
+        p.requires_grad_(n in trainable)
+    with plain_versions():
+        loss = model32.training_loss(batch, draws=draws)
+        loss.backward()
+    params = dict(model32.named_parameters())
+    norm = torch.sqrt(sum(params[n].grad.float().pow(2).sum() for n in trainable
+                          if params[n].grad is not None))
+    out = float(loss.detach()), float(norm), {n: params[n].grad.float().clone() for n in leaves}
+    del model32, params, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup: int = 2,
+                label: str = "phase 6", check: Optional[str] = "plain", leaves=NAMED_LEAVES,
+                profile: bool = True):
+    """Phase 6 (and 9d): full-width training steps on the port's Trainer,
+    after one loss and backward with the kernels and with the plain
+    versions, compared on `leaves` by `check_train_step` (check "plain") or
+    `check_train_step_vs_fp32` ("fp32"), or not (None). `expected` holds
+    the launches per step of every kernel but K4's, whose come from the
+    GroupNorm census of the first warm-up step. Returns the launch counts of
+    the timed run, its ms per step, the peak memory and the census."""
     from morphablediffusion_torch.training.trainer import Trainer
 
     B = TRAIN_BATCH
@@ -1194,40 +1348,18 @@ def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup
         norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
                               for _, p in trainer.grad_params() if p.grad is not None))
         return (float(loss.detach()), float(norm),
-                {n: params[n].grad.float().clone() for n in NAMED_LEAVES})
+                {n: params[n].grad.float().clone() for n in leaves})
 
-    loss_k, norm_k, leaves_k = loss_and_grads()
-    with plain_versions():
-        loss_p, norm_p, leaves_p = loss_and_grads()
-        # the plain versions once more: how far the nondeterministic
-        # backward alone moves the same numbers
-        loss_r, norm_r, leaves_r = loss_and_grads()
+    if check == "plain":
+        check_train_step(label, loss_and_grads, leaves, n_train, t0)
+    elif check == "fp32":
+        check_train_step_vs_fp32(label, loss_and_grads,
+                                 lambda: fp32_loss_and_grads(cfg, model, batch, draws, leaves),
+                                 leaves, n_train, t0)
     model.zero_grad(set_to_none=True)
-    loss_gap = abs(loss_k - loss_p) / abs(loss_p)
-    norm_gap = abs(norm_k - norm_p) / norm_p
-    loss_bound = NOISE_FACTOR * abs(loss_r - loss_p) / abs(loss_p) + REL_TRAIN_LOSS
-    norm_bound = NOISE_FACTOR * abs(norm_r - norm_p) / norm_p + REL_TRAIN_GRAD
-    leaf_gap = {n: rel_l2(leaves_k[n], leaves_p[n]) for n in NAMED_LEAVES}
-    leaf_noise = {n: rel_l2(leaves_r[n], leaves_p[n]) for n in NAMED_LEAVES}
-    leaf_bound = {n: NOISE_FACTOR * leaf_noise[n] + REL_TRAIN_LEAF for n in NAMED_LEAVES}
-    log(f"phase 6 one training loss and backward, B={B} ({n_train / 1e6:.1f} M trainable "
-        f"params): loss kernels {loss_k:.6f} plain {loss_p:.6f} (rel {loss_gap:.2e}, bound "
-        f"{loss_bound:.2e}); grad norm kernels {norm_k:.5f} plain {norm_p:.5f} (rel "
-        f"{norm_gap:.2e}, bound {norm_bound:.2e}); plain again: loss rel "
-        f"{abs(loss_r - loss_p) / abs(loss_p):.2e}, grad norm rel "
-        f"{abs(norm_r - norm_p) / norm_p:.2e} ({time.perf_counter() - t0:.1f} s)")
-    for n, e in leaf_gap.items():
-        log(f"  grad rel_l2 kernels vs plain {e:.3e}, plain vs plain {leaf_noise[n]:.3e} "
-            f"(bound {leaf_bound[n]:.3e})  {n}")
-    if not (math.isfinite(loss_k) and loss_gap <= loss_bound and norm_gap <= norm_bound
-            and all(leaf_gap[n] <= leaf_bound[n] for n in NAMED_LEAVES)):
-        raise AssertionError(f"training step kernels vs plain: loss {loss_gap:.2e} (bound "
-                             f"{loss_bound:.2e}), grad norm {norm_gap:.2e} ({norm_bound:.2e}), "
-                             f"leaves {leaf_gap} (bounds {leaf_bound})")
-    del leaves_k, leaves_p, leaves_r
 
-    before = {n: params[n].detach().float().clone() for n in NAMED_LEAVES}
-    census = gn_census(model, lambda: trainer.train_step(batch))
+    before = {n: params[n].detach().float().clone() for n in leaves}
+    census = gn_census(lambda: trainer.train_step(batch))
     expected = dict(expected, **gn_launches(census))
     for _ in range(warmup - 1):
         trainer.train_step(batch)
@@ -1246,16 +1378,18 @@ def train_phase(cfg, device, kernels, expected, steps: int = TRAIN_STEPS, warmup
     ms = ev0.elapsed_time(ev1) / steps
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
-    moved = [n for n in NAMED_LEAVES if not torch.equal(before[n], params[n].detach().float())]
-    log(f"phase 6 training: {ms:.2f} ms per step (CUDA events, mean of {steps} after "
+    moved = [n for n in leaves if not torch.equal(before[n], params[n].detach().float())]
+    log(f"{label} training: {ms:.2f} ms per step (CUDA events, mean of {steps} after "
         f"{warmup} warm-up), {host_ms:.2f} ms host clock; {B / ms * 1e3:.3f} samples/s; peak "
         f"allocated {peak / 2**30:.2f} GiB; losses {[round(x, 5) for x in losses]}; "
         f"launches over {steps} steps {launches} (expected per step {expected})")
-    if not all(math.isfinite(x) for x in losses) or len(moved) != len(NAMED_LEAVES):
-        raise AssertionError(f"training: losses {losses}, parameters moved {moved}")
+    if not all(math.isfinite(x) for x in losses) or len(moved) != len(leaves):
+        raise AssertionError(f"{label} training: losses {losses}, parameters moved {moved}")
     if launches != {n: steps * c for n, c in expected.items()}:
-        raise AssertionError(f"training launch counts {launches}, expected {steps} x {expected}")
-    profile_report("phase 6 one profiled training step", lambda: trainer.train_step(batch))
+        raise AssertionError(f"{label} training launch counts {launches}, expected {steps} x "
+                             f"{expected}")
+    if profile:
+        profile_report(f"{label} one profiled training step", lambda: trainer.train_step(batch))
     return launches, ms, peak, census
 
 
@@ -1376,12 +1510,16 @@ def timed_avatar(sampler, batch, kernels, want, label: str, warmup: bool = True)
 
 def avatar_launches(kernels, cfg, k1_shapes, k2_shape, gn_counts):
     """Launches of every kernel in one serving avatar: K1 (by design) and K2
-    per step (main_path_shapes) times the steps, K4 per GroupNorm call of the census,
-    none of the training kernels."""
+    per step (main_path_shapes) times the steps, K3 at the unfused
+    DepthTransformers (none under `Config()`), K4 per GroupNorm call of the
+    census, none of the backward kernels."""
     want = {k.name: 0 for k in kernels}
     steps = cfg.model.sample_steps
     want.update({n: steps * c for n, c in k1_launches(k1_shapes).items()},
-                flash_attention=steps * k2_shape["per_step"], **gn_launches(gn_counts))
+                flash_attention=steps * k2_shape["per_step"],
+                depth_attention=steps * sum(
+                    s["per_step"] for s in serving_k3_shapes(cfg, cfg.model.view_num)),
+                **gn_launches(gn_counts))
     return want
 
 
@@ -1664,6 +1802,283 @@ def cli_phase(device, kernels, k1_shapes, k2_shape, serving_census):
     return fine_census
 
 
+# phase 9: the from-scratch recipe (configs/synth_scratch.yaml) and the other
+# training configurations. The synthetic tree: subjects 1-4 train, 5
+# validates, two expressions each, 16 views at 128^2 (synth_scratch's size)
+SYNTH_CONFIG = ROOT / "configs/synth_scratch.yaml"
+SYNTH_SUBJECTS, SYNTH_EXPRESSIONS, SYNTH_VIEWS, SYNTH_SIZE = 5, 2, 16, 128
+VAE_STEPS, VAE_LOG_EVERY = 40, 10  # train_vae at the CLI's defaults otherwise
+SYNTH_STEPS = 4  # train.py steps on synth_scratch; the last one validates
+CONFIG_STEPS = 3  # timed training steps of each other configuration, after 1 warm-up
+# decode(encode(x)) of the train_vae file against the same weights before the
+# latent fold, fp32 (the fold moves only rounding)
+REL_L2_FOLD = 1e-4
+# z * 0.18215 of the folded VAE on a fresh batch: about unit-variance
+FOLD_STD_RANGE = (0.5, 2.0)
+# the fine conditioner's phase-9 leaves besides NAMED_LEAVES: the reference's
+# xyzc_net (its first conv and a BatchNorm's trained running mean)
+FINE_LEAVES = NAMED_LEAVES + ("spatial_volume.mesh_voxel.net.conv0_0.weight",
+                              "spatial_volume.mesh_voxel.net.conv2_7.mean")
+
+
+class _Tee:
+    """stdout for a CLI's main: printed through and kept."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, text):
+        sys.__stdout__.write(text)
+        self.lines.append(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def run_cli(main_fn, argv):
+    """main_fn(argv) with its stdout printed and returned, and its host
+    seconds (ending in a device synchronize)."""
+    tee = _Tee()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        main_fn(argv)
+    torch.cuda.synchronize()
+    return tee.text(), time.perf_counter() - t0
+
+
+def synthetic_tree(root: Path):
+    """Phase 9a: the port's synthetic FaceScape tool."""
+    from morphablediffusion_torch.tools import make_synthetic_facescape
+
+    _, seconds = run_cli(make_synthetic_facescape.main, [
+        "--out", str(root), "--subjects", str(SYNTH_SUBJECTS), "--expressions",
+        str(SYNTH_EXPRESSIONS), "--views", str(SYNTH_VIEWS), "--image_size", str(SYNTH_SIZE)])
+    pngs = len(list((root / "data").rglob("*.png")))
+    log(f"phase 9a synthetic data: {pngs} views of {SYNTH_SIZE}^2 under {root} "
+        f"({seconds:.1f} s)")
+    if pngs != SYNTH_SUBJECTS * SYNTH_EXPRESSIONS * SYNTH_VIEWS:
+        raise AssertionError(f"phase 9a: {pngs} pngs written")
+
+
+def vae_phase(data: Path, out: Path, device, kernels, card: str):
+    """Phase 9b: `train_vae.main` at the CLI's defaults for VAE_STEPS steps:
+    the loss finite and falling, K4 launched once per GroupNorm call (the
+    census of one step and of the fold's encodes; no other kernel), the
+    file's meta keys, and the fold. Returns the GroupNorm census of a step."""
+    from morphablediffusion_torch.apps import train_vae
+    from morphablediffusion_torch.models.diffusion import FIRST_STAGE_SCALE
+    from morphablediffusion_torch.ops import group_norm as gn
+
+    meta = dict(ch=32, ch_mult=[1, 2, 2, 4], num_res_blocks=1, image_size=SYNTH_SIZE)
+    B = 16
+    probe = train_vae.build_vae(meta, device)
+    x = torch.rand((B, 3, SYNTH_SIZE, SYNTH_SIZE), device=device) * 2 - 1
+    eps = torch.randn((B, 4, SYNTH_SIZE // 8, SYNTH_SIZE // 8), device=device)
+    step = gn_census(lambda: train_vae.vae_loss(probe, x, eps, 1e-6)[0].backward())
+    with torch.no_grad():
+        enc = gn_census(lambda: probe.encode_moments(x))
+    del probe
+    for k in kernels:
+        k.launches = 0
+    text, seconds = run_cli(train_vae.main, [
+        "--data_dir", str(data), "--out", str(out), "--steps", str(VAE_STEPS),
+        "--log_every", str(VAE_LOG_EVERY)])
+    launches = {k.name: k.launches for k in kernels}
+    rows = re.findall(r"step (\d+) loss ([-\d.e+naif]+) .* (\d+) ms/step", text)
+    losses = [float(r[1]) for r in rows]
+    want = {k.name: 0 for k in kernels}
+    want[gn.KERNEL.name] = VAE_STEPS * sum(step.values()) + 4 * sum(enc.values())
+    log(f"phase 9b train_vae: {VAE_STEPS} steps of B={B} at {SYNTH_SIZE}^2 in {seconds:.1f} s "
+        f"(host clock, nvcc excluded); ms/step by window of {VAE_LOG_EVERY} "
+        f"{[int(r[2]) for r in rows]} ({card}); losses {losses}; K4 {sum(step.values())} "
+        f"launches a step over {len(step)} shapes (one channel a group: "
+        f"{sorted({k[0] for k in step if k[0][1] == k[2]})}); launches {launches}")
+    if not (losses and all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 9b: losses {losses} not finite and falling")
+    if launches != want:
+        raise AssertionError(f"phase 9b: launches {launches}, expected {want}")
+    state, meta_out = train_vae.load_vae(str(out))
+    keys = {"ch", "ch_mult", "num_res_blocks", "image_size", "latent_std_raw", "fold_scale"}
+    if set(meta_out) != keys:
+        raise AssertionError(f"phase 9b: meta keys {sorted(meta_out)}, expected {sorted(keys)}")
+    folded = train_vae.build_vae(meta_out, device, dtype=torch.float32)
+    folded.load_state_dict(state)
+    unfolded = train_vae.build_vae(meta_out, device, dtype=torch.float32)
+    unfolded.load_state_dict(train_vae.fold_latent_scale(state, 1.0 / meta_out["fold_scale"]))
+    ds = train_vae.ImageFolderDataset(str(data), SYNTH_SIZE)
+    imgs = train_vae.to_images({"image": np.stack([ds[i]["image"] for i in range(B)])}, device)
+    with torch.no_grad():
+        mean, _ = folded.encode_moments(imgs)
+        rec = folded.decode(mean)
+        rec0 = unfolded.decode(unfolded.encode_moments(imgs)[0])
+    err, std = rel_l2(rec, rec0), float((mean * FIRST_STAGE_SCALE).std())
+    log(f"  fold x{meta_out['fold_scale']:.4f} (latent std {meta_out['latent_std_raw']:.4f}): "
+        f"decode(encode(x)) after vs before rel_l2 {err:.3e} (bound {REL_L2_FOLD}); "
+        f"std of z*{FIRST_STAGE_SCALE} {std:.4f} (range {FOLD_STD_RANGE}); recon vs input "
+        f"rel_l2 {rel_l2(rec, imgs):.4f}")
+    if not (err <= REL_L2_FOLD and FOLD_STD_RANGE[0] <= std <= FOLD_STD_RANGE[1]):
+        raise AssertionError(f"phase 9b: fold rel L2 {err:.3e}, latent std {std:.4f}")
+    return step
+
+
+def synth_config(root: Path, tmp: Path):
+    """A copy of configs/synth_scratch.yaml on the synthetic tree, validating
+    at its last step, logging every step: (path, the port's Config)."""
+    import yaml
+
+    from morphablediffusion_torch.utils.config import load_config
+
+    raw = yaml.safe_load(SYNTH_CONFIG.read_text())
+    uid = lambda s, e: f"{s:03d}/{e:02d}"
+    raw["data"].update(
+        data_dir=str(root / "data"), flame_assets_dir=str(root / "flame"),
+        uids=[uid(s, e) for s in range(1, SYNTH_SUBJECTS) for e in range(1, 3)],
+        val_uids=[uid(SYNTH_SUBJECTS, e) for e in range(1, 3)], num_workers=4)
+    raw["train"].update(val_check_interval=SYNTH_STEPS, log_every=1)
+    path = tmp / "synth_scratch.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return path, load_config(path)
+
+
+def synth_phase(root: Path, vae_file: Path, tmp: Path, device, kernels, checked, card: str):
+    """Phase 9c: `train.main` on synth_scratch with --vae_from, SYNTH_STEPS
+    steps and the validation avatar at the last. Launches per training step
+    (K1 by design, K3, no K2) and of the avatar, K4 once per GroupNorm call;
+    the graft; the contact sheet. Phase 2 at its new shapes first (9e).
+    Returns the GroupNorm census of the run."""
+    from PIL import Image
+
+    from morphablediffusion_torch.apps import train
+    from morphablediffusion_torch.apps.train_vae import load_vae
+    from morphablediffusion_torch.ops import group_norm as gn
+    from morphablediffusion_torch.sampling import SyncDDIMSampler
+
+    path, cfg = synth_config(root, tmp)
+    m = cfg.model
+    B_train, B_val = cfg.data.batch_size, m.output_num * m.batch_view_num
+    chunks = m.view_num // m.batch_view_num
+    tshapes = train_shapes(cfg, B_train)
+    k1_val = [{k: v for k, v in s.items() if k != "fused"}
+              for s in depth_blocks(cfg, B_val, train=False) if s["fused"]]
+    k3_val = serving_k3_shapes(cfg, B_val)
+
+    # 9e: the kernels against their plain versions at synth_scratch's shapes
+    g = torch.Generator(device).manual_seed(9)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=device) * std).bfloat16()
+    with torch.no_grad():
+        for path_name, k1s, k3s in (("synth serving", k1_val, k3_val),
+                                    ("synth training", tshapes["k1"], tshapes["k3"])):
+            for name, rows in check_k1(k1s, device, rn, 10, path_name).items():
+                checked[name] = checked.get(name, []) + rows
+            checked["depth_attention"] += check_k3(
+                [s for s in k3s if s["per_step"]], device, rn, 10, path_name)
+
+    expected = train_expected_launches(tshapes)
+    val_want = {n: m.sample_steps * chunks * c for n, c in k1_launches(k1_val).items()}
+    val_want["depth_attention"] = m.sample_steps * chunks * sum(s["per_step"] for s in k3_val)
+    val = {}
+    sample = SyncDDIMSampler.sample
+
+    def timed_sample(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = {k.name: k.launches for k in kernels}
+        t0 = time.perf_counter()
+        out = sample(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        val["seconds"] = time.perf_counter() - t0
+        val["launches"] = {k.name: k.launches - before[k.name] for k in kernels}
+        return out
+
+    for k in kernels:
+        k.launches = 0
+    run_dir = tmp / "runs" / "synth"
+    cli = {}
+
+    def run_train():
+        cli["out"] = run_cli(train.main, ["-b", str(path), "-l", str(tmp / "runs"), "-n", "synth",
+                                          "--vae_from", str(vae_file), "--max_steps",
+                                          str(SYNTH_STEPS)])
+
+    SyncDDIMSampler.sample = timed_sample
+    try:
+        census = gn_census(run_train)
+    finally:
+        SyncDDIMSampler.sample = sample
+    text, seconds = cli["out"]
+    launches = {k.name: k.launches for k in kernels}
+    train_launches = {n: c - val["launches"][n] for n, c in launches.items()}
+    step_ms = [int(v) for v in re.findall(r"step \d+ loss .* (\d+) ms/step", text)]
+    losses = [float(v) for v in re.findall(r"step \d+ loss ([-\d.e+naif]+)", text)]
+    want_train = {n: SYNTH_STEPS * expected.get(n, 0) for n in launches}
+    want_train[gn.KERNEL.name] = train_launches[gn.KERNEL.name]
+    val_want = {n: val_want.get(n, 0) for n in launches}
+    val_want[gn.KERNEL.name] = val["launches"][gn.KERNEL.name]
+    log(f"phase 9c train.py on synth_scratch: {SYNTH_STEPS} steps of B={B_train} then the "
+        f"validation avatar ({m.output_num} samples x {m.view_num} views, {chunks} chunks of "
+        f"{m.batch_view_num} views, {m.sample_steps} steps) in {seconds:.1f} s; ms/step (host "
+        f"clock) {step_ms} ({card}); validation avatar {val['seconds']:.2f} s; losses {losses}")
+    log(f"  launches per training step {({n: c / SYNTH_STEPS for n, c in train_launches.items()})}"
+        f" (expected {expected}); avatar {val['launches']} (expected {val_want}); K4 "
+        f"{launches[gn.KERNEL.name]} launches for {sum(census.values())} GroupNorm calls")
+    if train_launches != want_train or val["launches"] != val_want:
+        raise AssertionError(f"phase 9c: launches training {train_launches} (expected "
+                             f"{want_train}), avatar {val['launches']} (expected {val_want})")
+    if launches[gn.KERNEL.name] != sum(census.values()):
+        raise AssertionError(f"phase 9c: K4 launched {launches[gn.KERNEL.name]} times for "
+                             f"{sum(census.values())} GroupNorm calls")
+    if len(losses) != SYNTH_STEPS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 9c: losses {losses}")
+    state, _ = load_vae(str(vae_file))
+    params = torch.load(run_dir / "ckpt" / "params" / "params.pt", map_location="cpu")
+    bad = [k for k, v in state.items()
+           if not torch.equal(params[f"first_stage.{k}"], v.to(params[f"first_stage.{k}"].dtype))]
+    sheet = np.asarray(Image.open(run_dir / "images" / "val" / f"{SYNTH_STEPS}.jpg"), np.float32)
+    log(f"  graft: {len(state) - len(bad)} of {len(state)} first_stage tensors equal the "
+        f"train_vae file's; contact sheet {sheet.shape} std {sheet.std():.2f}")
+    if bad or not (np.isfinite(sheet).all() and sheet.std() > 0):
+        raise AssertionError(f"phase 9c: first_stage differs at {bad[:5]} or the contact sheet "
+                             "is constant")
+    return census
+
+
+def training_complete(device, kernels, checked, card: str):
+    """Phase 9: the from-scratch recipe (a - c, with e: phase 2 at its new
+    shapes) and full-width training under THuman, the fine conditioner and
+    use_spatial_volume (d). Returns the GroupNorm censuses for K4's check."""
+    t_phase = time.perf_counter()
+    censuses = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "synth"
+        synthetic_tree(root)
+        t0 = time.perf_counter()
+        censuses.append(("train_vae", vae_phase(root / "data", tmp / "vae" / "vae.pt", device,
+                                                kernels, card)))
+        log(f"phase 9b: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        censuses.append(("synth_scratch", synth_phase(root, tmp / "vae" / "vae.pt", tmp, device,
+                                                      kernels, checked, card)))
+        log(f"phase 9c, e: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+    for label, cfg in other_configs().items():
+        t0 = time.perf_counter()
+        expected = train_expected_launches(train_shapes(cfg, TRAIN_BATCH))
+        _, _, _, census = train_phase(
+            cfg, device, kernels, expected, steps=CONFIG_STEPS, warmup=1,
+            label=f"phase 9d {label}", check="fp32" if label == "fine" else None,
+            leaves=FINE_LEAVES if label == "fine" else NAMED_LEAVES, profile=False)
+        censuses.append((f"{label} training", census))
+        torch.cuda.empty_cache()
+        log(f"phase 9d {label}: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 9 training complete: {time.perf_counter() - t_phase:.1f} s")
+    return censuses
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1763,6 +2178,9 @@ def main() -> int:
     # 8. the generate_face CLI
     censuses.append(("cli_fine", cli_phase(device, kernels, k1_shapes, k2_shape, gn_avatar)))
 
+    # 9. training complete
+    censuses += training_complete(device, kernels, checked, card)
+
     # K4 (phase 2) at every GroupNorm call the censuses found
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1770,7 +2188,7 @@ def main() -> int:
     log(f"K4 vs plain at {len({k for _, c in censuses for k in c})} shapes: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 9. results
+    # 10. results
     train_run = f"training: {TRAIN_STEPS} steps of B={TRAIN_BATCH} ({train_ms:.2f} ms each)"
     per_step = {n: c // TRAIN_STEPS for n, c in train_launches.items()}
     serving = lambda name: (launches[name], "serving", "avatar")

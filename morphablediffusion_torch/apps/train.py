@@ -1,24 +1,30 @@
 """Training CLI of the PyTorch port.
 
 Counterpart of the JAX package's `apps/train.py`: flags -b/-l/-n/-s/--resume/
---max_steps/--profile_steps/--finetune_from, the step log line, a validation
-contact sheet every `val_check_interval` steps (the DDIM sampler with the config's
-`batch_view_num`), rolling and snapshot checkpoints, the refusal to
+--max_steps/--profile_steps/--finetune_from/--vae_from/--rss_restart_gb, the
+FaceScape and THuman datasets, the step log line (with the host's RSS),
+TensorBoard scalars where `torch.utils.tensorboard` imports, a validation
+contact sheet every `val_check_interval` steps (the DDIM sampler with the
+config's `batch_view_num`), rolling and snapshot checkpoints, the refusal to
 overwrite an existing run, and the final checkpoint. One card; `--device cpu`
 runs it on the CPU (a rehearsal at a tiny config).
 
     python -m morphablediffusion_torch.apps.train -b configs/facescape.yaml \
         -l runs -n facescape [--resume] [--device cpu]
 
---finetune_from imports a reference checkpoint (`utils/torch_import.py`)
-over the seeded weights before step 0; it is ignored on --resume, whose
-checkpoint supersedes it. Not ported yet: --vae_from and --rss_restart_gb
-(ROADMAP A12b) and the THuman dataset (A10); each raises NotImplementedError.
+--vae_from grafts a `train_vae` file into the frozen first stage, and
+--finetune_from then imports a reference checkpoint (`utils/torch_import.py`)
+over the seeded weights, both before step 0; both are ignored on --resume,
+whose checkpoint supersedes them. --rss_restart_gb N: at a rolling-checkpoint
+step before the last, if the host RSS exceeds N GiB, the process replaces
+itself (`os.execv`) with the same command plus --resume.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 from pathlib import Path
 
@@ -27,24 +33,55 @@ import torch
 
 
 def build_datasets(cfg):
-    """(train, val) FaceScape datasets of the config."""
-    from morphablediffusion_torch.data.facescape import FaceScapeDataset, train_val_uids
+    """(train, val) datasets of the config: FaceScape or THuman."""
+    from morphablediffusion_torch.data import facescape, thuman
 
     d, m = cfg.data, cfg.model
-    if d.dataset != "facescape":
-        raise NotImplementedError(f"dataset {d.dataset!r}: the port reads FaceScape "
-                                  "only; THuman is ROADMAP A10")
-    train_ids, val_ids = train_val_uids()
+    if d.dataset == "facescape":
+        train_ids, val_ids = facescape.train_val_uids()
+        extra = {"flame_assets_dir": d.flame_assets_dir} if d.flame_assets_dir else {}
+        mk = lambda ids, seed: facescape.FaceScapeDataset(
+            d.data_dir, ids, mesh_topology=d.mesh_topology,
+            shuffled_expression=d.shuffled_expression, image_size=m.image_size,
+            num_views=m.view_num, max_vertices=m.max_vertices, seed=seed, **extra)
+    elif d.dataset == "thuman":
+        train_ids, val_ids = thuman.train_val_uids()
+        mk = lambda ids, seed: thuman.THumanDataset(
+            d.data_dir, d.smplx_dir, ids, image_size=m.image_size, num_views=m.view_num,
+            max_vertices=m.max_vertices, seed=seed)
+    else:
+        raise NotImplementedError(d.dataset)
     if d.uids:
         train_ids = list(d.uids)
     if d.val_uids:
         val_ids = list(d.val_uids)
-    extra = {"flame_assets_dir": d.flame_assets_dir} if d.flame_assets_dir else {}
-    mk = lambda ids, seed: FaceScapeDataset(
-        d.data_dir, ids, mesh_topology=d.mesh_topology,
-        shuffled_expression=d.shuffled_expression, image_size=m.image_size,
-        num_views=m.view_num, max_vertices=m.max_vertices, seed=seed, **extra)
     return mk(train_ids, d.seed), mk(val_ids, d.seed + 1)
+
+
+def rss_gib() -> float:
+    """The host's resident set size of this process in GiB (0 where
+    /proc is absent)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * 4096 / 2**30
+    except OSError:
+        return 0.0
+
+
+@torch.no_grad()
+def graft_vae(model, path: str) -> None:
+    """Load a `train_vae` file into model.first_stage, in the dtype of each
+    parameter there; refuse a file of another architecture."""
+    from morphablediffusion_torch.apps.train_vae import load_vae
+
+    state, meta = load_vae(path)
+    print(f"grafting first_stage from {path} ({meta})")
+    like = model.first_stage.state_dict()
+    if state.keys() != like.keys() or any(state[k].shape != v.shape for k, v in like.items()):
+        raise ValueError("VAE arch mismatch: config vae_ch/vae_ch_mult/vae_num_res_blocks "
+                         "must match the train_vae run")
+    for k, v in like.items():
+        v.copy_(state[k].to(v.dtype))
 
 
 def save_val_sheet(images, batch, path):
@@ -82,12 +119,13 @@ def main(argv=None):
                              "runs on the CPU")
     parser.add_argument("--finetune_from", type=str, default="",
                         help="reference .ckpt/.pt/.pth to start from (ignored on --resume)")
-    parser.add_argument("--vae_from", type=str, default="", help="not ported (A12b)")
-    parser.add_argument("--rss_restart_gb", type=float, default=0.0, help="not ported (A12b)")
+    parser.add_argument("--vae_from", type=str, default="",
+                        help="a train_vae file grafted into the frozen first_stage before "
+                             "step 0 (ignored on --resume)")
+    parser.add_argument("--rss_restart_gb", type=float, default=0.0,
+                        help="restart with --resume (os.execv) when the host RSS exceeds this "
+                             "many GiB at a rolling-checkpoint step; 0 = off")
     flags = parser.parse_args(argv)
-    for flag in ("vae_from", "rss_restart_gb"):
-        if getattr(flags, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP A12b)")
 
     from morphablediffusion_torch.data.loader import PrefetchLoader
     from morphablediffusion_torch.sampling import SyncDDIMSampler
@@ -111,10 +149,13 @@ def main(argv=None):
     trainer = Trainer(cfg, device=device)
     if flags.resume and ckpt.latest_step() is not None:
         print(f"resumed from step {ckpt.restore(trainer)}")
-    elif flags.finetune_from:
-        from morphablediffusion_torch.utils.torch_import import import_torch_checkpoint
+    else:
+        if flags.vae_from:
+            graft_vae(trainer.model, flags.vae_from)
+        if flags.finetune_from:
+            from morphablediffusion_torch.utils.torch_import import import_torch_checkpoint
 
-        import_torch_checkpoint(flags.finetune_from, trainer.model)
+            import_torch_checkpoint(flags.finetune_from, trainer.model)
     loader = PrefetchLoader(train_ds, cfg.data.batch_size, seed=cfg.data.seed,
                             num_workers=cfg.data.num_workers)
     val_loader = PrefetchLoader(val_ds, cfg.model.output_num, shuffle=False,
@@ -124,6 +165,12 @@ def main(argv=None):
         lo, _, hi = flags.profile_steps.partition("-")
         prof_lo, prof_hi = int(lo), int(hi or lo)
 
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        writer = SummaryWriter(str(run_dir / "tb"))
+    except Exception:  # TensorBoard is optional, as in the JAX package
+        writer = None
     batches = loader.epochs()
     sampler = val_batches = prof = None
     t_last = time.perf_counter()
@@ -153,9 +200,14 @@ def main(argv=None):
                 mem = (torch.cuda.max_memory_allocated(device) / 2**30
                        if device.type == "cuda" else 0.0)
                 lr = trainer.lr_at(trainer.opt_step)
-                print(f"step {step} loss {loss:.4f} grad_norm "
-                      f"{float(metrics['grad_norm']):.4f} lr {lr:.2e} "
-                      f"{dt * 1000:.0f} ms/step peak {mem:.1f} GiB", flush=True)
+                grad_norm = float(metrics["grad_norm"])
+                print(f"step {step} loss {loss:.4f} grad_norm {grad_norm:.4f} lr {lr:.2e} "
+                      f"{dt * 1000:.0f} ms/step peak {mem:.1f} GiB rss {rss_gib():.1f} GiB",
+                      flush=True)
+                if writer:
+                    for tag, value in (("loss", loss), ("step_time_s", dt),
+                                       ("grad_norm", grad_norm), ("hbm_gib", mem), ("lr", lr)):
+                        writer.add_scalar(f"train/{tag}", value, step)
 
             if cfg.train.val_check_interval and step % cfg.train.val_check_interval == 0:
                 if sampler is None:
@@ -169,6 +221,21 @@ def main(argv=None):
                                                       for k, v in val_batch.items()},
                                run_dir / "images" / "val" / f"{step}.jpg")
             ckpt.maybe_save(trainer, step)
+            if (flags.rss_restart_gb and step % max(cfg.train.rolling_checkpoint_every, 1) == 0
+                    and step < cfg.train.max_steps):
+                rss = rss_gib()
+                if rss > flags.rss_restart_gb:
+                    # the rolling checkpoint of this step is saved: replace the
+                    # process image and resume from it
+                    if writer:
+                        writer.close()
+                    argv_new = list(argv if argv is not None else sys.argv[1:])
+                    if "--resume" not in argv_new:
+                        argv_new.append("--resume")
+                    print(f"rss {rss:.1f} GiB > {flags.rss_restart_gb} GiB: self-restarting "
+                          f"with --resume at step {step}", flush=True)
+                    os.execv(sys.executable, [sys.executable, "-m",
+                                              "morphablediffusion_torch.apps.train", *argv_new])
         ckpt.maybe_save(trainer, trainer.step, force=True)
     finally:
         if prof is not None:
@@ -176,6 +243,8 @@ def main(argv=None):
         batches.close()  # stops the producer thread
         if val_batches is not None:
             val_batches.close()
+        if writer:
+            writer.close()
     print("training done")
 
 

@@ -205,14 +205,20 @@ class ResBlock(nn.Module):
         return x + h
 
 
+def flash_ok(Lq: int, Lk: int) -> bool:
+    """Whether attention over Lq queries and Lk keys takes the flash kernel
+    (K2): both at least 1024 and multiples of 1024, the JAX package's gate."""
+    return min(Lq, Lk) >= 1024 and Lq % 1024 == 0 and Lk % 1024 == 0
+
+
 def attention(q, k, v, num_heads: int):
     """Multi-head attention core. q (B, Lq, H*hd), k/v (B, Lk, H*hd) ->
-    (B, Lq, H*hd). Lq, Lk >= 1024 and divisible by 1024 runs the flash
-    kernel (plain version on the CPU); elsewhere SDPA, which is what
-    jax.nn.dot_product_attention is in the JAX package."""
+    (B, Lq, H*hd). Where `flash_ok` it runs the flash kernel (plain version
+    on the CPU); elsewhere SDPA, which is what jax.nn.dot_product_attention
+    is in the JAX package."""
     B, Lq, inner = q.shape
     Lk = k.shape[1]
-    if min(Lq, Lk) >= 1024 and Lq % 1024 == 0 and Lk % 1024 == 0:
+    if flash_ok(Lq, Lk):
         return flash.flash_attention(q, k, v, num_heads)
     hd = inner // num_heads
     split = lambda t, L: t.reshape(B, L, num_heads, hd).transpose(1, 2)

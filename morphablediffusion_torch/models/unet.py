@@ -4,13 +4,15 @@ Counterpart of the JAX package's `models/unet.py`. Feature maps are
 channels-first (B, C, H, W); frustum volumes are (B, C, D, H, W) and arrive
 in `source_dict` keyed by their width.
 
-At serving (`train=False`) every DepthTransformer takes the fused context
-chain (`ops.depth_attention.depth_attention_ctx`, kernel K1). In training
-(`train=True`) the blocks at frustum width >= 8 keep the fused chain and the
-W=4 middle block takes the unfused module chain (proj_context ->
-GroupNorm(relu) -> to_k/to_v -> `depth_attention`, kernel K3): the JAX
-package's training gate (`models/unet.py::_fused_ok`, W >= 8). On the card
-the kernels run inside autograd Functions; on the CPU their plain versions.
+A DepthTransformer takes the fused context chain
+(`ops.depth_attention.depth_attention_ctx`, kernel K1) where `fused_ok`
+says so, the JAX package's gate on the TPU (`models/unet.py::_fused_ok`):
+inner width a multiple of 128, and H*W >= 8 at serving or W >= 8 in
+training. Every other block takes the unfused module chain (proj_context ->
+GroupNorm(relu) -> to_k/to_v -> `depth_attention`, kernel K3). Under
+`Config()` that is every block at serving and the W=4 middle block in
+training. On the card the kernels run inside autograd Functions; on the
+CPU their plain versions.
 
 `w8a8=True` serves the internal convs W8A8 (`ops.int8`): the ResBlocks',
 Up/Downsample's, the SpatialTransformers' 1x1s and the DepthTransformers'
@@ -47,8 +49,23 @@ from morphablediffusion_torch.ops.embeddings import timestep_embedding
 # reads (width = latent >> index); the middle block reads index 3
 OUT_COND_CTX = {3: 2, 4: 2, 5: 1, 6: 1, 7: 1, 8: 0, 9: 0, 10: 0, 11: 0}
 MIDDLE_COND_CTX = 3
-# training takes the fused depth-context kernel from this frustum width up
+# the fused depth-context chain needs an inner width that is a multiple of
+# FUSED_INNER_MULTIPLE, and at least SERVING_FUSED_MIN_PIXELS pixels at
+# serving or a frustum width of TRAIN_FUSED_MIN_WIDTH in training
+FUSED_INNER_MULTIPLE = 128
+SERVING_FUSED_MIN_PIXELS = 8
 TRAIN_FUSED_MIN_WIDTH = 8
+
+
+def fused_ok(num_heads: int, head_dim: int, H: int, W: int, train: bool) -> bool:
+    """Whether a DepthTransformer of num_heads x head_dim on an H x W
+    frustum takes the fused chain (K1): the JAX package's `_fused_ok` on the
+    TPU, as a function of shapes."""
+    if num_heads * head_dim % FUSED_INNER_MULTIPLE:
+        return False
+    if train:
+        return W >= TRAIN_FUSED_MIN_WIDTH
+    return H * W >= SERVING_FUSED_MIN_PIXELS
 
 
 class DepthAttention(nn.Module):
@@ -102,6 +119,11 @@ class DepthTransformer(nn.Module):
         self.proj_out_conv1 = Conv2d(inner, out_channels, 3, bias=False, dtype=dtype,
                                      int8=int8)
 
+    def fused(self, context, train: bool) -> bool:
+        """Whether this block takes the fused chain on `context`."""
+        return fused_ok(self.num_heads, self.inner // self.num_heads, *context.shape[-2:],
+                        train)
+
     def forward(self, x, context, cfg_doubled: bool = False, train: bool = False,
                 moments=None):
         """moments: ctx_moments(context), shared by the blocks that read the
@@ -116,7 +138,7 @@ class DepthTransformer(nn.Module):
         h = self.proj_in_norm(self.proj_in_conv(xc))
 
         att = self.depth_attn
-        if train and context.shape[-1] < TRAIN_FUSED_MIN_WIDTH:
+        if not self.fused(context, train):
             c = self.proj_context_norm(self.proj_context_conv.channels(context))
             h = att(h, c)
         else:
@@ -235,8 +257,7 @@ class DepthWiseUNet(nn.Module):
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dt))
         x = x.to(dt)
         context = context.to(dt)
-        moments = {w: da.ctx_moments(v) for w, v in source_dict.items()
-                   if not train or w >= TRAIN_FUSED_MIN_WIDTH}
+        moments = {}  # ctx_moments per frustum width, for the blocks that fuse
 
         def run(name, *args):
             block = getattr(self, name)
@@ -246,7 +267,10 @@ class DepthWiseUNet(nn.Module):
 
         def cond(name, h):
             w = h.shape[-1]
-            return run(name, h, source_dict[w], cfg_doubled, train, moments.get(w))
+            ctx = source_dict[w]
+            if getattr(self, name).fused(ctx, train) and w not in moments:
+                moments[w] = da.ctx_moments(ctx)
+            return run(name, h, ctx, cfg_doubled, train, moments.get(w))
 
         h = self.input_conv(x)
         hs = [h]

@@ -52,7 +52,8 @@ def test_package_imports_no_jax():
     r = _run(code)
     assert r.returncode == 0, r.stderr
     assert "BAD []" in r.stdout, r.stdout
-    for name in ("apps.generate_face", "apps.train", "ops.int8", "preprocessing.matting",
+    for name in ("apps.generate_face", "apps.train", "apps.train_vae", "data.thuman",
+                 "ops.int8", "preprocessing.matting", "tools.make_synthetic_facescape",
                  "utils.mesh_io", "utils.torch_import"):
         assert f"'morphablediffusion_torch.{name}'" in r.stdout, name
 
@@ -175,3 +176,29 @@ def test_chip_smoke_batch_is_the_bench_batch():
     for k in ref:
         torch.testing.assert_close(ours[k], torch.tensor(jax.device_get(ref[k])), rtol=0,
                                    atol=0)
+
+
+def test_chip_smoke_synth_scratch_counts():
+    """Phase 9's synth_scratch path under the JAX gate: in training (batch 8,
+    remat) K1 at W=8 only (the Hopper design, G=2), K3 at W=16, 4 and 2, no
+    K2 (L=256 takes SDPA); at serving (a chunk of 2 samples x 4 views) K1 at
+    W=8 and W=4 (the WMMA design) and K3 at W=16 and 2."""
+    cfg = port_config.load_config(chip_smoke.SYNTH_CONFIG)
+    shapes = chip_smoke.train_shapes(cfg, 8)
+    assert [(s["W"], s["Cc"], s["per_step"]) for s in shapes["k1"]] == [(8, 64, 6)]
+    assert [(s["W"], s["C"], s["D"], s["per_step"]) for s in shapes["k3"]] == [
+        (2, 512, 6, 2), (4, 256, 12, 4), (8, 128, 24, 0), (16, 64, 48, 8)]
+    assert shapes["k2"]["per_step"] == shapes["k2"]["bwd_per_step"] == 0
+    assert chip_smoke.train_expected_launches(shapes) == {
+        "depth_attention_ctx_wgmma": 6, "depth_attention_ctx_cluster": 0,
+        "depth_attention_ctx": 0, "depth_attention": 14,
+        "flash_attention": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+    B = cfg.model.output_num * cfg.model.batch_view_num
+    k1 = [s for s in chip_smoke.depth_blocks(cfg, B, train=False) if s["fused"]]
+    assert chip_smoke.k1_launches(k1) == {
+        "depth_attention_ctx_wgmma": 3, "depth_attention_ctx_cluster": 0,
+        "depth_attention_ctx": 2}
+    assert [(s["W"], s["C"], s["per_step"]) for s in chip_smoke.serving_k3_shapes(cfg, B)] == [
+        (2, 512, 1), (16, 64, 4)]
+    # Config()'s serving path has no unfused block
+    assert chip_smoke.serving_k3_shapes(port_config.Config(), 16) == []

@@ -112,8 +112,8 @@ train:
 def test_train_cli_on_the_cpu(tmp_path):
     """One step of the port's train CLI with --device cpu on the synthetic
     layout (step log, validation contact sheet, checkpoint), a rerun that is
-    refused without --resume, a resumed second step, and the flags that are
-    not ported yet."""
+    refused without --resume, a --vae_from file that is missing, and a
+    resumed second step."""
     from morphablediffusion_torch.apps import train
 
     data, flame = _facescape_layout(tmp_path)
@@ -130,13 +130,40 @@ def test_train_cli_on_the_cpu(tmp_path):
     r = run()
     assert r.returncode == 0, r.stderr[-3000:]
     assert "step 1 loss" in r.stdout and "training done" in r.stdout
+    assert " rss " in r.stdout
     run_dir = tmp_path / "runs" / "smoke"
     assert (run_dir / "ckpt" / "last" / "state.pt").is_file()
     assert Image.open(run_dir / "images" / "val" / "1.jpg").size == (64 * 3, 64)
     with pytest.raises(RuntimeError, match="--resume"):
         train.main(args)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        train.main(args + ["--vae_from", "x"])
+    with pytest.raises(FileNotFoundError):  # a --vae_from path that is not there
+        train.main(args + ["-n", "no_vae", "--vae_from", str(tmp_path / "missing.pt")])
     r = run("--resume", "--max_steps", "2")
     assert r.returncode == 0, r.stderr[-3000:]
     assert "resumed from step 1" in r.stdout and "step 2 loss" in r.stdout
+
+
+def test_rss_restart_resumes(tmp_path):
+    """--rss_restart_gb near 0 with a rolling checkpoint every step: after
+    step 1 the run saves, replaces itself with the same command plus
+    --resume, resumes from step 1 and ends at max_steps."""
+    data, flame = _facescape_layout(tmp_path)
+    cfg = tmp_path / "train.yaml"
+    cfg.write_text(TRAIN_YAML.replace(
+        "  dataset: facescape\n",
+        f"  dataset: facescape\n  data_dir: {data}\n  flame_assets_dir: {flame}\n"
+        f"  uids: {UIDS}\n  val_uids: ['002/02']\n").replace(
+        "  val_check_interval: 1\n", "  val_check_interval: 0\n"
+        "  rolling_checkpoint_every: 1\n"))
+    env = dict(os.environ, PYTHONPATH=os.getcwd(), OMP_NUM_THREADS="2")
+    r = subprocess.run(
+        [sys.executable, "-m", "morphablediffusion_torch.apps.train", "-b", str(cfg), "-l",
+         str(tmp_path / "runs"), "-n", "rss", "--device", "cpu", "--max_steps", "2",
+         "--rss_restart_gb", "0.001"],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = r.stdout
+    assert "GiB: self-restarting with --resume at step 1" in out
+    assert "resumed from step 1" in out and "step 2 loss" in out
+    assert out.rstrip().endswith("training done") and out.count("training done") == 1
+    assert (tmp_path / "runs" / "rss" / "ckpt" / "last" / "step").read_text() == "2"

@@ -1,9 +1,11 @@
 """Port parity of models/unet.py against the JAX package on the CPU, fp32.
 
-On the CPU the JAX DepthTransformer runs the unfused chain, while the port at
-serving runs the fused context chain's plain version (moments folded into an
-affine), so those comparisons use the JAX package's own fused-vs-unfused bar,
-2e-4. The port's train path is the unfused chain: 1e-4."""
+On the CPU the JAX DepthTransformer runs the unfused chain, while the port
+runs the fused context chain's plain version (moments folded into an affine)
+where the JAX gate on the TPU would (`unet.fused_ok`: inner width 128 here,
+at serving), so those comparisons use the JAX package's own
+fused-vs-unfused bar, 2e-4. The port's train path at W=4 is the unfused
+chain: 1e-4."""
 
 import jax
 import jax.numpy as jnp
@@ -17,12 +19,12 @@ from tests.torch_parity import assert_close, cf, cl, load_into, seeded_tree, tt
 
 
 def _depth_tf(rng, B, Bc):
-    C, CTX, D, H, W = 32, 16, 6, 4, 4
+    C, CTX, D, H, W = 32, 64, 6, 4, 4  # inner width 4 x 32: fused at serving
     x = rng.normal(size=(B, H, W, C)).astype(np.float32)
     ctx = rng.normal(size=(Bc, D, H, W, CTX)).astype(np.float32)
-    jmod = J.DepthTransformer(num_heads=4, head_dim=8, out_channels=C, ctx_dim=CTX)
+    jmod = J.DepthTransformer(num_heads=4, head_dim=32, out_channels=C, ctx_dim=CTX)
     params = seeded_tree(jmod.init(jax.random.key(0), jnp.asarray(x[:Bc]), jnp.asarray(ctx)))
-    port = load_into(T.DepthTransformer(4, 8, C, C, CTX), params)
+    port = load_into(T.DepthTransformer(4, 32, C, C, CTX), params)
     return x, ctx, jmod, params, port
 
 
@@ -58,7 +60,8 @@ def test_depth_transformer_rejects_batch_mismatch(rng):
 @pytest.mark.parametrize("cfg_doubled", [False, True])
 def test_tiny_unet(rng, cfg_doubled):
     """A tiny DepthWiseUNet (model_channels 32, volume dims 8..64, 8x8
-    latent), every DepthTransformer on the fused plain chain."""
+    latent): inner widths 16 to 128, the 128 one on a 1x1 frustum, so every
+    DepthTransformer takes the unfused chain."""
     B = 4 if cfg_doubled else 2
     Bc = B // 2 if cfg_doubled else B
     dims = (8, 16, 32, 64)

@@ -154,23 +154,26 @@ def train_config():
     return jcfg
 
 
-def train_setup(B: int = 2):
-    """train_config's model and a B-sample batch; well-conditioned seeded
-    parameters with VAE and CLIP stored in bf16 (the JAX Trainer's
-    cast_frozen); and a root key whose step-0 drop uniforms drop a condition
-    of sample 0 and none of sample 1, and whose step 0 keeps the UNet's ReLU
-    inputs clear of 0 (`relu_margin`)."""
+def train_setup(B: int = 2, jcfg=None, adjust=None, mesh_voxel: bool = False):
+    """jcfg's model (default train_config's) and a B-sample batch;
+    well-conditioned seeded parameters (then `adjust(params)` if given) with
+    VAE and CLIP stored in bf16 (the JAX Trainer's cast_frozen); and a root
+    key whose step-0 drop uniforms drop a condition of sample 0 and none of
+    sample 1, and whose step 0 keeps the UNet's ReLU inputs clear of 0
+    (`relu_margin`), and with mesh_voxel those of the mesh-voxel net too."""
     from morphablediffusion_tpu.models.diffusion import MorphableDiffusion
     from morphablediffusion_tpu.parallel.mesh import create_mesh
     from morphablediffusion_tpu.training.trainer import Trainer
     from tests.tiny import tiny_batch
 
-    jcfg = train_config()
+    jcfg = jcfg or train_config()
     jmodel = MorphableDiffusion(jcfg.model)
     batch = tiny_batch(jcfg, B=B)
     init_rngs = dict(zip(["params"] + STEP_NAMES, jax.random.split(jax.random.key(0), 6)))
     params = well_conditioned(seeded_tree(jax.eval_shape(
         lambda b: jmodel.init(init_rngs, b, method="init_fn"), batch)))
+    if adjust is not None:
+        params = adjust(params)
     params = Trainer(jcfg, mesh=create_mesh(jax.devices()[:1])).cast_frozen(
         jax.tree.map(jnp.asarray, params))
     s = dict(jcfg=jcfg, jmodel=jmodel, batch=batch, params=params,
@@ -180,19 +183,22 @@ def train_setup(B: int = 2):
         rng = jax.random.key(k)
         draws = torch_draws(jmodel, params, batch, step_rngs(rng, 0))
         r = draws["r"].numpy()
-        if r[0] <= 0.2 < r[1] and relu_margin(port, s["tb"], draws) > 3e-6:
+        if (r[0] <= 0.2 < r[1] and relu_margin(port, s["tb"], draws) > 3e-6
+                and (not mesh_voxel or relu_margin(port, s["tb"], draws, True) > 1e-6)):
             return dict(s, rng=rng)
     raise AssertionError("no step key meets the conditions")
 
 
-def relu_margin(model, batch, draws) -> float:
+def relu_margin(model, batch, draws, mesh_voxel: bool = False) -> float:
     """The smallest non-zero |input| of the UNet's GroupNorm ReLUs (the
     DepthTransformers' context and output norms, and the fused chain's) in
-    the port's training loss. A ReLU's derivative jumps at 0: an input
-    within rounding (~1e-6 here) of 0 may take the other branch in the JAX
-    package, which moves the gradient of every weight that sums over that
-    location by ~1e-2 of its size. train_setup picks a step key whose inputs
-    keep clear of it."""
+    the port's training loss, and with mesh_voxel also of the mesh-voxel
+    net's (`torch.relu`, coarse and fine). A ReLU's derivative jumps at 0:
+    an input within rounding (~1e-6 here) of 0 may take the other branch in
+    the JAX package, which moves the gradient of every weight that sums over
+    that location by ~1e-2 of its size (~1e-4 in the mesh-voxel net, whose
+    sums run over a whole voxel grid). train_setup picks a step key whose
+    inputs keep clear of it."""
     import torch.nn.functional as F
 
     from morphablediffusion_torch.ops import depth_attention as da
@@ -216,13 +222,20 @@ def relu_margin(model, batch, draws) -> float:
         note(p.float() * A[:, :, None, None, None] + B2[:, :, None, None, None])
         return full(q, ctx, mean_x, m2, Wp, gn_scale, gn_bias, Wk, Wv, heads, groups, eps)
 
-    full, saved = da._ctx_full, group_norm._ACTS["relu"]
+    def mv_relu(x):
+        note(x)
+        return relu(x)
+
+    full, saved, relu = da._ctx_full, group_norm._ACTS["relu"], torch.relu
     da._ctx_full, group_norm._ACTS["relu"] = ctx_full, gn_relu
+    if mesh_voxel:  # the mesh-voxel nets call torch.relu
+        torch.relu = mv_relu
     try:
         with torch.no_grad():
             model.training_loss(batch, draws=draws)
     finally:
         da._ctx_full, group_norm._ACTS["relu"] = full, saved
+        torch.relu = relu
     return min(seen)
 
 
