@@ -31,6 +31,16 @@ def load_rgba_white(path, image_size: int) -> np.ndarray:
     return np.asarray(pil).astype(np.float32) / 255.0 * 2.0 - 1.0
 
 
+def load_mask(path, image_size: int) -> np.ndarray:
+    """Alpha channel resized to (S, S), float32 in [0, 1]."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(path))
+    alpha = img[..., 3] if img.shape[-1] == 4 else np.full(img.shape[:2], 255, np.uint8)
+    pil = Image.fromarray(alpha).resize((image_size, image_size), Image.BILINEAR)
+    return np.asarray(pil).astype(np.float32) / 255.0
+
+
 def pad_vertices(verts: np.ndarray, max_vertices: int):
     """(N, 3) -> ((max, 3), (max,)) with zero padding + mask."""
     n = verts.shape[0]

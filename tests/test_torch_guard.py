@@ -11,6 +11,7 @@
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,7 +55,11 @@ def test_package_imports_no_jax():
     assert "BAD []" in r.stdout, r.stdout
     for name in ("apps.generate_face", "apps.train", "apps.train_vae", "data.thuman",
                  "ops.int8", "preprocessing.matting", "tools.make_synthetic_facescape",
-                 "utils.mesh_io", "utils.torch_import"):
+                 "utils.mesh_io", "utils.torch_import", "eval.metrics", "eval.lpips_vgg",
+                 "eval.irse", "eval.keypoint_net", "apps.eval_select_views",
+                 "apps.eval_generate", "apps.eval_keypoints", "apps.eval_2d",
+                 "apps.train_keypoints", "apps.calibrate_reid",
+                 "tools.make_synthetic_landmarks"):
         assert f"'morphablediffusion_torch.{name}'" in r.stdout, name
 
 
@@ -202,3 +207,50 @@ def test_chip_smoke_synth_scratch_counts():
         (2, 512, 1), (16, 64, 4)]
     # Config()'s serving path has no unfused block
     assert chip_smoke.serving_k3_shapes(port_config.Config(), 16) == []
+
+
+def test_chip_smoke_eval_counts():
+    """Phase 10: eval_generate's 20 targets at Config()'s 16 views make 2
+    view groups, so a sampler call runs at B=2: K1 at 32 views (350 + 150 +
+    0 launches a call, by design, as the avatar's) and K2 at B=64 (250);
+    LandmarkNet launches K4 once per GroupNorm, 14 a forward."""
+    from morphablediffusion_torch.eval.keypoint_net import LandmarkNet
+    from morphablediffusion_torch.models.layers import GroupNorm
+
+    cfg = port_config.Config()
+    groups = math.ceil(chip_smoke.EVAL_VIEWS / cfg.model.view_num)
+    assert groups == chip_smoke.EVAL_LIMIT == 2
+    k1 = [s for s in chip_smoke.depth_blocks(cfg, groups * cfg.model.view_num, train=False)
+          if s["fused"]]
+    assert [(s["B"], s["W"]) for s in k1] == [(32, 4), (32, 8), (32, 16), (32, 32)]
+    assert {n: 50 * c for n, c in chip_smoke.k1_launches(k1).items()} == {
+        "depth_attention_ctx_wgmma": 350, "depth_attention_ctx_cluster": 150,
+        "depth_attention_ctx": 0}
+    assert 50 * chip_smoke.main_path_shapes(cfg)[1]["per_step"] == 250
+    assert sum(isinstance(m, GroupNorm) for m in LandmarkNet().modules()) == (
+        chip_smoke.LANDMARK_NORMS)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chip_smoke_group_norm_fp64_gate(dtype):
+    """K4's accuracy gate in chip_smoke.py: `gn_exact` is GroupNorm in fp64
+    (torch's own on doubles, 1e-12), the plain version passes the gate
+    against itself and lies within its dtype's rounding of the exact
+    result, and eps x 10 fails the gate at a shape of 131 072 outputs."""
+    import torch.nn.functional as F
+
+    from morphablediffusion_torch.ops import group_norm as gn
+
+    key = ((2, 64, 32, 32), dtype, 8, "silu", True, 1e-6)
+    args = chip_smoke.gn_inputs(key, torch.Generator().manual_seed(0), "cpu")
+    x, shift, gamma, beta = args[:4]
+    exact = chip_smoke.gn_exact(*args)
+    want = F.silu(F.group_norm(x.double() + shift.double()[..., None, None], 8,
+                               gamma.double(), beta.double(), 1e-6))
+    assert float((exact - want).abs().max()) < 1e-12
+    dist = lambda y: float((y.double() - exact).norm() / exact.norm())
+    plain = dist(gn._reference(*args))
+    assert plain < {torch.bfloat16: 3e-3, torch.float32: 3e-7}[dtype]
+    margin = chip_smoke.K4_MARGIN[dtype] + chip_smoke.K4_FLIPS / x.numel()
+    assert dist(gn._reference(*args)) / plain - 1 <= margin
+    assert dist(gn._reference(*args[:5], 1e-5, "silu")) / plain - 1 > margin
