@@ -35,7 +35,7 @@ Phases (any failure exits non-zero):
      (cluster size, tile or pack, grid, shared memory) and the clusters the
      card holds at once (cudaOccupancyMaxActiveClusters). K4 (GroupNorm)
      is held the same way at every GroupNorm call that the censuses of
-     phases 3, 6, 7, 8, 9 and 10 find, after phase 10 (and at every shape no
+     phases 3, 6, 7, 8, 9, 10 and 11 find, after phase 11 (and at every shape no
      further from an fp64 GroupNorm than the plain version is, times 1 + a
      margin; K4 given eps x 10 must fail that gate at some shape of each
      dtype),
@@ -144,7 +144,29 @@ Phases (any failure exits non-zero):
      L2 1e-4) and the landmark coordinates (0.05 px) on the card against
      the port's CPU run, TF32 off; (h) each stage's seconds; its GroupNorm
      censuses go to K4's check;
-  11. print the kernels line, the card line, and as the last line
+  11. FLAME fitting (`apps/fit_face.py`) through `main([...])` on the
+     port's synthetic FLAME assets at FLAME2020's widths (5 023 vertices,
+     9 976 faces, 100 + 50 codes, 51 + 79 x 17 landmarks): (a) the tool and
+     `load_model` on the card; (b) two photos' ground truth from a seed, 68
+     landmarks each at 512^2 with 0.5 px of noise, fit_face at 40 LM
+     iterations a stage, then with --overlay: each LM stage timed with no
+     host sync inside it (`set_sync_debug_mode`; the process's first stage
+     may sync once as cuSOLVER and functorch initialize), the PLY 5 023 finite
+     vertices, each photo's mean reprojection error <= 1 px; (c)
+     --kpt_weights with phase 10 (c)'s net at 256^2 on two of phase 10's
+     painted views: K4 once per GroupNorm call (14 a photo) and nothing
+     else, its shapes added to K4's check, the detections on the card
+     against the CPU (0.05 px with TF32 off, 1 px with cuDNN TF32 on); (d)
+     (b)'s fit with --device cpu: the PLYs' vertices (relative L2 0.1),
+     each photo's canonical parameters (0.7) and reprojection error (0.3
+     px), two fp32 fits that stop apart (the CPU's own spread under 1e-3 px
+     moves printed beside), and at the ground truth the residuals and
+     Jacobian (1e-5) and one LM proposal through J (1e-3); (e) the C++ rasterizer against its numpy version at the mesh,
+     512^2 (coverage but on triangle edges, depth 1e-5 relative), then
+     --silhouette on photos painted with the ground truth's silhouette; (f)
+     `render_depth_cv` and `calibrate_colors` on a 16-view 256^2 synthetic
+     capture of the head; each part's seconds;
+  12. print the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Fp32 references on the card run with TF32 off: both
@@ -162,6 +184,7 @@ import importlib.util
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2477,9 +2500,11 @@ def check_metrics(label, result, perfect: bool):
         raise AssertionError(f"{label}: metrics {result}")
 
 
-def eval_phase(device, kernels, checked):
+def eval_phase(device, kernels, checked, keep: Path):
     """Phase 10: the eval harness ((a) - (h) in the module docstring).
-    Returns the GroupNorm censuses for K4's check."""
+    Copies the landmark net of (c) and two painted views (subject 001,
+    expressions 01 and 02, view 0) into `keep` for phase 11. Returns the
+    GroupNorm censuses for K4's check."""
     from morphablediffusion_torch.apps import calibrate_reid, eval_2d, eval_keypoints
 
     t_phase, seconds, censuses = time.perf_counter(), {}, []
@@ -2550,11 +2575,476 @@ def eval_phase(device, kernels, checked):
         t0 = time.perf_counter()
         card_vs_cpu(f, net, gen_dir, device)
         seconds["(g) card vs CPU"] = time.perf_counter() - t0
+        shutil.copy(net, keep / "landmark_net.pt")
+        for exp, name in (("01", "photo_in.png"), ("02", "photo_exp.png")):
+            shutil.copy(f["data"] / "001" / exp / "view_00000" / "rgba_colorcalib.png",
+                        keep / name)
     log(f"phase 10 (h) seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; the "
         f"avatar at B=2 {[round(c['seconds'], 3) for c in calls]} s (CUDA events), peak "
         f"{max(c['peak'] for c in calls) / 2**30:.2f} GiB; phase 10 the eval harness: "
         f"{time.perf_counter() - t_phase:.1f} s")
     return censuses
+
+
+# phase 11: FLAME fitting (apps/fit_face.py) on the card and the rest of the
+# host-side preprocessing, on the port's synthetic FLAME assets at FLAME2020's
+# published widths (the licensed asset is not on the machine): 5 023
+# vertices, 9 976 faces, 300 + 100 blendshape columns (100 + 50 fitted), 5
+# joints, 51 static landmarks and the 79 x 17 jaw-contour table
+FLAME_VERTICES, FLAME_FACES = 5023, 9976
+# The seed's fits land at 0.58 - 0.75 px in both packages on the CPU, also
+# with the landmarks moved by 1e-3 px; seeds 11 and 15 reach a 1.2 - 1.7 px
+# local minimum in some fits of either package at 40 LM iterations a stage
+# (tests/fit_seed_study.py; ROADMAP Queue C)
+FIT_SIZE, FIT_NOISE_PX, FIT_SEED = 512, 0.5, 13  # the photos; fit_face's focal 1.2 x 512
+FIT_MAX_PX = 1.0  # each photo's mean reprojection error against its noisy landmarks
+# (global yaw deg, jaw opening rad, expression on) of the two photos
+FIT_PHOTOS = {"input": (8.0, 0.0, False), "exp": (-12.0, 0.15, True)}
+# the (b) fit on the card against the same fit on the CPU (TF32 off): on
+# noisy landmarks the LM paths part in fp32 along the rigid stages' gauge
+# null space (ROADMAP Queue C) and stop at different points of a flat
+# valley after 40 iterations, so these bound two fp32 fits, not rounding:
+# the PLY's vertices and each photo's flat canonical parameters (relative
+# L2) and its mean reprojection error (px). The bounds are about twice the
+# spread of CPU fits whose landmarks differ by 1e-3 px; (d) prints that
+# spread for one such pair beside the card's distance
+FIT_CARD_CPU = {"verts": 0.1, "params": 0.7, "px": 0.3}
+# the deterministic part of (d): at the ground truth, the residuals and
+# the Jacobian, and the first LM proposal through J (J·delta: its component
+# in the gauge null space is rounding), card against CPU, relative L2
+LM_STEP_CARD_CPU = {"r": 1e-5, "J": 1e-5, "J·delta": 1e-3}
+KPT_TF32_PX = 1.0  # landmark net, card with cuDNN TF32 on (fit_face's default) vs CPU
+# the C++ rasterizer against its numpy version at the FLAME mesh, 512^2: pixels
+# whose coverage differs (triangle edges), as a share of the covered ones,
+# and the depth elsewhere (relative)
+RASTER_EDGE_SHARE, RASTER_DEPTH_REL = 1e-3, 1e-5
+CALIB_VIEWS, CALIB_SIZE = 16, 256  # (f): FaceScape's crops
+
+
+@contextlib.contextmanager
+def lm_stages(record):
+    """Every LM stage that fit_face runs, timed (synchronized before and
+    after) with the host syncs inside it counted (`set_sync_debug_mode`
+    "warn": a stage must make none)."""
+    import warnings
+
+    from morphablediffusion_torch.fitting import fit
+
+    runner = fit._lm_stage_runner
+
+    def timed_runner(res_fn, P):
+        run = runner(res_fn, P)
+
+        def timed(flat, mask, steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = run(flat, mask, steps)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            sites = [f"{'/'.join(Path(w.filename).parts[-2:])}:{w.lineno}" for w in caught
+                     if "synchroniz" in str(w.message)]
+            record.append(dict(steps=steps, seconds=time.perf_counter() - t0,
+                               syncs=len(sites), sites=sorted(set(sites))))
+            return out
+
+        return timed
+
+    fit._lm_stage_runner = timed_runner
+    try:
+        yield record
+    finally:
+        fit._lm_stage_runner = runner
+
+
+@contextlib.contextmanager
+def recorded_fits(record):
+    """The canonical parameters of every `fit_landmarks` call (fit_face fits
+    the input photo, then the expression photo)."""
+    from morphablediffusion_torch.fitting import fit
+
+    fit_landmarks = fit.fit_landmarks
+
+    def recorded(*args, **kwargs):
+        params, info = fit_landmarks(*args, **kwargs)
+        record.append(np.concatenate([np.asarray(params[k]).reshape(-1) for k in fit.KEYS]))
+        return params, info
+
+    fit.fit_landmarks = recorded
+    try:
+        yield record
+    finally:
+        fit.fit_landmarks = fit_landmarks
+
+
+def flame_inputs(root: Path, device):
+    """Phase 11 (a), (b)'s inputs: the synthetic FLAME assets at FLAME2020's
+    widths, loaded on the card; ground-truth codes and poses of two photos
+    from a seed, their 68 landmarks projected at 512^2 (focal 1.2 x 512)
+    with 0.5 px of noise as .npy, and photos with the ground-truth mesh's
+    silhouette (the port's rasterizer) painted as a textured subject on a
+    uniform background, for (e)'s matting."""
+    from PIL import Image
+
+    from morphablediffusion_torch.fitting import flame, load_model, silhouette
+    from morphablediffusion_torch.tools import make_synthetic_flame
+
+    t0 = time.perf_counter()
+    run_cli(make_synthetic_flame.main, ["--out", str(root), "--vertices", str(FLAME_VERTICES),
+                                        "--faces", str(FLAME_FACES)])
+    f = {"flame": root / "generic_model.pkl", "lmk_embedding": root / "landmark_embedding.npy"}
+    t1 = time.perf_counter()
+    model = load_model(str(f["flame"]), str(f["lmk_embedding"]), device=device)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sizes = {k: tuple(getattr(model, k).shape) for k in (
+        "v_template", "faces", "shapedirs", "posedirs", "j_regressor", "lmk_faces",
+        "dyn_lmk_faces")}
+    log(f"phase 11 (a) synthetic FLAME assets: {sizes}, parents {model.parents}; written in "
+        f"{t1 - t0:.2f} s ({f['flame'].stat().st_size / 2**20:.1f} MiB), loaded onto "
+        f"{model.device} in {t2 - t1:.2f} s")
+    if (sizes["v_template"], sizes["faces"], sizes["shapedirs"], sizes["lmk_faces"],
+            sizes["dyn_lmk_faces"]) != ((FLAME_VERTICES, 3), (FLAME_FACES, 3),
+                                        (FLAME_VERTICES, 3, 150), (51, 3), (79, 17, 3)):
+        raise AssertionError(f"phase 11 (a): sizes {sizes}")
+
+    rng = np.random.default_rng(FIT_SEED)
+    S = FIT_SIZE
+    K = np.asarray([[1.2 * S, 0, S / 2], [0, 1.2 * S, S / 2], [0, 0, 1]], np.float32)
+    shape = rng.normal(size=model.n_shape).astype(np.float32)
+    expr = (0.8 * rng.normal(size=model.n_exp)).astype(np.float32)
+    gt = {}
+    for name, (yaw, jaw, with_exp) in FIT_PHOTOS.items():
+        pose = np.zeros(model.num_joints * 3, np.float32)
+        pose[1], pose[6] = np.radians(yaw), jaw
+        p = {"shape": shape, "exp": expr if with_exp else np.zeros_like(expr), "pose": pose,
+             "cam_r": np.asarray([0.02, 0.0, 0.0], np.float32),
+             "cam_t": np.asarray([0.01, -0.01, 0.5], np.float32)}
+        t = {k: torch.as_tensor(v, device=device) for k, v in p.items()}
+        with torch.no_grad():
+            lmk = flame.project_points(
+                flame.flame_landmarks(model, flame.flame_forward(model, t["shape"], t["exp"],
+                                                                 t["pose"]), t["pose"]),
+                t["cam_r"], t["cam_t"], torch.as_tensor(K, device=device)).cpu().numpy()
+        f[f"{name}_landmarks"] = root / f"lmk_{name}.npy"
+        np.save(f[f"{name}_landmarks"], lmk + rng.normal(size=lmk.shape) * FIT_NOISE_PX)
+        mask = silhouette.render_silhouette(model, p, K, S)
+        yy, xx = np.mgrid[0:S, 0:S]
+        img = np.full((S, S, 3), 200, np.uint8)
+        img[mask] = np.stack([80 + yy[mask] % 17, 40 + xx[mask] % 11,
+                              np.full(int(mask.sum()), 60)], -1)
+        f[f"{name}_img"] = root / f"photo_{name}.png"
+        Image.fromarray(img).save(f[f"{name}_img"])
+        gt[name] = p
+        log(f"  {name} photo: yaw {yaw:+.0f} deg, jaw {jaw} rad, expression {with_exp}; "
+            f"landmarks x {lmk[:, 0].min():.1f} - {lmk[:, 0].max():.1f}, y "
+            f"{lmk[:, 1].min():.1f} - {lmk[:, 1].max():.1f} px; silhouette "
+            f"{mask.mean():.3f} of the photo")
+    return f, model, K, gt
+
+
+def fit_argv(f, out: Path, *extra):
+    return ["--input_img", str(f["input_img"]), "--exp_img", str(f["exp_img"]),
+            "--flame", str(f["flame"]), "--lmk_embedding", str(f["lmk_embedding"]),
+            "--out", str(out), *extra]
+
+
+def fit_report(label, info, stages, seconds, first: bool = False):
+    """Log a fit_face call's stage costs, stage seconds, LM iterations per
+    second and seconds; fail on a host sync inside a stage. With `first`
+    (the process's first LM stage: cuSOLVER and functorch initialize) that
+    stage may sync once and is left out of the rate."""
+    warm = stages[1:] if first else stages
+    rate = sum(s["steps"] for s in warm) / sum(s["seconds"] for s in warm)
+    syncs = sum(s["syncs"] for s in warm)
+    log(f"{label}: {seconds:.2f} s the CLI call (host clock); {len(stages)} LM stages, "
+        f"seconds {[round(s['seconds'], 3) for s in stages]}, {rate:.1f} LM iterations/s"
+        f"{' after the first stage' if first else ''}; host syncs inside the stages "
+        f"{[s['syncs'] for s in stages]} at {sorted({x for s in stages for x in s['sites']})}; "
+        f"{', '.join(f'{k} {v:.5f}' for k, v in info.items())}")
+    if syncs or (first and stages[0]["syncs"] > 1):
+        raise AssertionError(f"{label}: host syncs inside LM stages "
+                             f"{[s['syncs'] for s in stages]}")
+    return rate
+
+
+def read_ply(path, label):
+    from morphablediffusion_torch.utils.mesh_io import load_ply
+
+    verts, faces = load_ply(path)
+    if verts.shape != (FLAME_VERTICES, 3) or faces.shape != (FLAME_FACES, 3) or not (
+            np.isfinite(verts).all()):
+        raise AssertionError(f"{label}: PLY {verts.shape} {faces.shape}")
+    return verts
+
+
+def lm_step_card_vs_cpu(model, lmk, K, params):
+    """Phase 11 (d), the deterministic part: at `params`, the residuals and
+    their Jacobian (`torch.func.jacfwd`) on the card against the CPU, and
+    the full stage's first LM proposal, delta = -(J^T J + 1e-2 I)^-1 J^T r
+    (cuSOLVER on the card), through J (J·delta in fp64 with the CPU's J).
+    Returns the relative distances."""
+    from morphablediffusion_torch.fitting import fit
+
+    cfg = fit.FitConfig()
+    w = np.ones(len(lmk), np.float32)
+    w[:17] = cfg.w_contour
+    out, card = {}, str(model.device)
+    for dev in (card, "cpu"):
+        m = model.to(dev)
+        t = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in params.items()}
+        flat, unravel = fit.ravel(t)
+        args = (m, torch.as_tensor(np.asarray(lmk, np.float32), device=dev),
+                torch.as_tensor(np.asarray(K, np.float32), device=dev), cfg,
+                torch.as_tensor(w, device=dev))
+        res = lambda q: fit._residuals(unravel(q), *args)
+        r, J = res(flat), torch.func.jacfwd(res)(flat)
+        A = J.T @ J + 1e-2 * torch.eye(len(flat), device=dev)
+        delta = -torch.linalg.solve_ex(A, J.T @ r)[0]
+        out[dev] = [x.double().cpu() for x in (r, J, delta)]
+    J64 = out["cpu"][1]
+    return {"r": rel_l2(out[card][0], out["cpu"][0]), "J": rel_l2(out[card][1], J64),
+            "J·delta": rel_l2(J64 @ out[card][2], J64 @ out["cpu"][2])}
+
+
+def fit_landmark_phase(f, model, K, gt, out: Path, device):
+    """Phase 11 (b) and (d): fit_face on the precomputed landmarks at the
+    default 40 LM iterations a stage, then with --overlay; the same fit on
+    the CPU. Returns the (b) seconds and iterations per second."""
+    from PIL import Image
+
+    from morphablediffusion_torch.apps import fit_face
+    from morphablediffusion_torch.fitting import flame
+
+    lmks = ["--input_landmarks", str(f["input_landmarks"]), "--exp_landmarks",
+            str(f["exp_landmarks"])]
+    stages, params = [], []
+    with lm_stages(stages), recorded_fits(params):
+        info, _, seconds = run_main(fit_face.main, fit_argv(f, out / "card.ply", *lmks))
+    rate = fit_report("phase 11 (b) fit_face, precomputed landmarks", info, stages, seconds,
+                      first=True)
+    verts = read_ply(out / "card.ply", "phase 11 (b)")
+    t = {k: torch.as_tensor(v, device=device) for k, v in gt["exp"].items()}
+    with torch.no_grad():
+        want = flame.flame_forward(model, t["shape"], t["exp"], t["pose"] * torch.as_tensor(
+            [0.0] * 3 + [1.0] * 12, device=device)).cpu().numpy()
+    log(f"  the PLY: {verts.shape[0]} vertices, relative L2 to the ground truth's retargeted "
+        f"canonical mesh {np.linalg.norm(verts - want) / np.linalg.norm(want):.4f} (identity "
+        f"from 68 landmarks is not fully determined)")
+    errs = (info["input_mean_px_err"], info["exp_mean_px_err"])
+    if not max(errs) <= FIT_MAX_PX:
+        raise AssertionError(f"phase 11 (b): mean reprojection errors {errs} px")
+
+    stages_o = []
+    with lm_stages(stages_o):
+        info_o, _, seconds_o = run_main(fit_face.main, fit_argv(
+            f, out / "overlay.ply", *lmks, "--overlay", str(out / "overlay.png")))
+    fit_report("phase 11 (b) fit_face --overlay (the input photo fitted again)", info_o,
+               stages_o, seconds_o)
+    png = np.asarray(Image.open(out / "overlay.png"))
+    green = ((png[..., 1] == 255) & (png[..., 0] == 0)).sum()
+    red = ((png[..., 0] == 255) & (png[..., 1] == 0)).sum()
+    log(f"  overlay {png.shape}: {green} green and {red} red pixels")
+    if png.shape != (FIT_SIZE, FIT_SIZE, 3) or not (green and red) or not (
+            info_o["overlay_mean_px_err"] <= FIT_MAX_PX):
+        raise AssertionError(f"phase 11 (b): overlay {png.shape}, {green}, {red}, {info_o}")
+
+    cpu_params = []
+    with recorded_fits(cpu_params):
+        info_c, _, seconds_c = run_main(fit_face.main, fit_argv(f, out / "cpu.ply", *lmks,
+                                                               "--device", "cpu"))
+    cpu = read_ply(out / "cpu.ply", "phase 11 (d)")
+    errs = {"verts": float(np.linalg.norm(verts - cpu) / np.linalg.norm(cpu))}
+    for i, name in enumerate(("input", "exp")):
+        errs[f"params {name}"] = float(np.linalg.norm(params[i] - cpu_params[i])
+                                       / np.linalg.norm(cpu_params[i]))
+        errs[f"px {name}"] = abs(info[f"{name}_mean_px_err"] - info_c[f"{name}_mean_px_err"])
+    log(f"phase 11 (d) the same fit on the CPU: {seconds_c:.2f} s; card against CPU (TF32 "
+        f"off): {', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (bounds {FIT_CARD_CPU}); "
+        f"CPU costs {', '.join(f'{k} {v:.5f}' for k, v in info_c.items())}")
+    if not all(v <= FIT_CARD_CPU[k.split()[0]] for k, v in errs.items()):
+        raise AssertionError(f"phase 11 (d): {errs}")
+    from morphablediffusion_torch.fitting import fit
+
+    lmk = np.load(f["input_landmarks"])
+    p_cpu, i_cpu = fit.fit_landmarks(model.to("cpu"), lmk + np.random.default_rng(0).normal(
+        size=lmk.shape) * 1e-3, K)
+    spread = {"params": float(np.linalg.norm(np.concatenate([p_cpu[k].reshape(-1) for k in
+                                                             fit.KEYS]) - cpu_params[0])
+                              / np.linalg.norm(cpu_params[0])),
+              "px": abs(i_cpu["mean_px_err"] - info_c["input_mean_px_err"])}
+    log(f"  the CPU against itself, the input photo's landmarks moved by 1e-3 px: "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in spread.items())}")
+    step = lm_step_card_vs_cpu(model, lmk, K, gt["input"])
+    log(f"  one LM step at the input photo's ground truth, card against CPU: "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in step.items())} (bounds {LM_STEP_CARD_CPU})")
+    if not all(v <= LM_STEP_CARD_CPU[k] for k, v in step.items()):
+        raise AssertionError(f"phase 11 (d): one LM step {step}")
+    return seconds, rate
+
+
+def kpt_phase(keep: Path, out: Path, kernels):
+    """Phase 11 (c): fit_face --kpt_weights with phase 10 (c)'s landmark net
+    at its training size on two of phase 10's painted views: K4 once per
+    LandmarkNet GroupNorm call, 14 a photo, and no other kernel; the
+    detections on the card against the CPU's with cuDNN TF32 off (the
+    script's setting) and on (fit_face's default). Returns the census."""
+    from PIL import Image
+
+    from morphablediffusion_torch.apps import fit_face
+    from morphablediffusion_torch.ops import group_norm as gn
+
+    f = {"input_img": keep / "photo_in.png", "exp_img": keep / "photo_exp.png",
+         "flame": keep / "flame" / "generic_model.pkl",
+         "lmk_embedding": keep / "flame" / "landmark_embedding.npy"}
+    argv = fit_argv(f, out / "kpt.ply", "--kpt_weights", str(keep / "landmark_net.pt"),
+                    "--kpt_size", str(EVAL_SIZE))
+    info, census, seconds = counted_cli("phase 11 (c) fit_face --kpt_weights", fit_face.main,
+                                        argv, kernels)
+    want = 2 * LANDMARK_NORMS
+    if sum(census.values()) != want or {k[0][0] for k in census} != {1}:
+        raise AssertionError(f"phase 11 (c): GroupNorm census {census}, {want} calls expected")
+    read_ply(out / "kpt.ply", "phase 11 (c)")
+    if not all(math.isfinite(v) for v in info.values()):
+        raise AssertionError(f"phase 11 (c): {info}")
+    img = np.asarray(Image.open(f["input_img"]).convert("RGB"), np.float32) / 255.0
+    detect = lambda dev: fit_face._detect(img, "", str(keep / "landmark_net.pt"), EVAL_SIZE,
+                                          torch.device(dev))
+    cpu = detect("cpu")
+    px = {"TF32 off": float(np.abs(detect("cuda") - cpu).max())}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        px["TF32 on"] = float(np.abs(detect("cuda") - cpu).max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    log(f"  {sum(census.values())} GroupNorm calls over {len(census)} shapes "
+        f"({LANDMARK_NORMS} a photo at {EVAL_SIZE}^2); fit {', '.join(f'{k} {v:.3f}' for k, v in info.items())}; "
+        f"the input photo's landmarks, card against CPU, largest difference (px): {px}")
+    if not (px["TF32 off"] <= LANDMARK_CARD_CPU_PX and px["TF32 on"] <= KPT_TF32_PX):
+        raise AssertionError(f"phase 11 (c): landmarks card vs CPU {px}")
+    return census
+
+
+def silhouette_phase(f, model, K, gt, out: Path):
+    """Phase 11 (e): the C++ rasterizer against its numpy version at the
+    ground-truth mesh, 512^2; then fit_face --silhouette on the painted
+    photos (the native matting recovers the rendered silhouette)."""
+    from morphablediffusion_torch.apps import fit_face
+    from morphablediffusion_torch.fitting import silhouette
+    from morphablediffusion_torch.preprocessing import raster
+
+    vpx = silhouette._verts_px(model, gt["input"], K)
+    tris = model.faces.cpu().numpy().astype(np.int32)
+    t0 = time.perf_counter()
+    native = raster.rasterize_depth_px(vpx, tris, FIT_SIZE, FIT_SIZE)
+    t1 = time.perf_counter()
+    plain = raster.rasterize_depth_numpy(vpx, tris, FIT_SIZE, FIT_SIZE)
+    t2 = time.perf_counter()
+    edge = (native > 0) != (plain > 0)
+    both = (native > 0) & (plain > 0)
+    depth = float((np.abs(native[both] - plain[both]) / plain[both]).max())
+    share = edge.sum() / max(int((plain > 0).sum()), 1)
+    log(f"phase 11 (e) rasterizer at {FLAME_FACES} faces, {FIT_SIZE}^2: native {t1 - t0:.4f} s, "
+        f"numpy {t2 - t1:.2f} s (host); {int((plain > 0).sum())} covered pixels, {int(edge.sum())} "
+        f"covered by one only (triangle edges, {share:.2e} of them); depth elsewhere within "
+        f"{depth:.2e} relative")
+    if not (share <= RASTER_EDGE_SHARE and depth <= RASTER_DEPTH_REL):
+        raise AssertionError(f"phase 11 (e): rasterizer edges {share}, depth {depth}")
+    stages = []
+    lmks = ["--input_landmarks", str(f["input_landmarks"]), "--exp_landmarks",
+            str(f["exp_landmarks"])]
+    with lm_stages(stages):
+        info, _, seconds = run_main(fit_face.main, fit_argv(f, out / "sil.ply", *lmks,
+                                                           "--silhouette"))
+    fit_report("phase 11 (e) fit_face --silhouette", info, stages, seconds)
+    read_ply(out / "sil.ply", "phase 11 (e)")
+    sil = [info.get(f"{n}_loss_silhouette", math.nan) for n in ("input", "exp")]
+    if not all(math.isfinite(v) for v in sil):
+        raise AssertionError(f"phase 11 (e): silhouette costs {sil}")
+
+
+def calib_phase(model, gt, out: Path):
+    """Phase 11 (f): the rest of the host-side preprocessing at FaceScape's
+    size: a synthetic capture of the ground-truth head (16 views on a ring,
+    256^2, a color field on the surface, a color cast per view), its depth
+    by `render_depth_cv`, then `calibrate_colors`."""
+    from PIL import Image
+
+    from morphablediffusion_torch.fitting import flame
+    from morphablediffusion_torch.preprocessing import color_calib, raster
+
+    dev = model.device
+    t = {k: torch.as_tensor(v, device=dev) for k, v in gt["input"].items()}
+    with torch.no_grad():
+        verts = flame.flame_forward(model, t["shape"], t["exp"], t["pose"]).double().cpu().numpy()
+    faces = model.faces.cpu().numpy().astype(np.int32)
+    S = CALIB_SIZE
+    K = np.asarray([[1.2 * S, 0, S / 2], [0, 1.2 * S, S / 2], [0, 0, 1]])
+    rng = np.random.default_rng(FIT_SEED)
+    cams, seconds = {}, 0.0
+    for i, az in enumerate(np.linspace(-np.pi / 2, np.pi / 2, CALIB_VIEWS)):
+        eye = np.asarray([0.6 * np.sin(az), 0.05, -0.6 * np.cos(az)])  # the face looks to -z
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross([0.0, -1.0, 0.0], fwd)
+        right /= np.linalg.norm(right)
+        R = np.stack([right, np.cross(fwd, right), fwd])
+        Rt = np.concatenate([R, (-R @ eye)[:, None]], 1)
+        t0 = time.perf_counter()
+        depth = raster.render_depth_cv(verts, faces, K, Rt, (S, S))
+        seconds += time.perf_counter() - t0
+        yy, xx = np.mgrid[0:S, 0:S] + 0.5
+        cam = np.stack([(xx - K[0, 2]) / K[0, 0], (yy - K[1, 2]) / K[1, 1], np.ones_like(xx)],
+                       -1) * depth[..., None]
+        world = (cam - Rt[:, 3]) @ R  # back to the head's frame
+        rgb = 0.5 + 0.3 * np.sin(world * [40.0, 30.0, 50.0])
+        rgb = np.clip(rgb * (1 + 0.06 * rng.normal(size=3)), 0, 1)
+        rgba = np.concatenate([rgb, (depth > 0)[..., None]], -1)
+        d = out / "scan" / f"view_{i:05d}"
+        d.mkdir(parents=True)
+        Image.fromarray((rgba * 255).astype(np.uint8), "RGBA").save(d / "rgba.png")
+        cams[str(i)] = dict(intrinsics=K.tolist(), extrinsics=Rt.tolist(), angles={})
+    (out / "scan" / "cameras.json").write_text(json.dumps(cams))
+    t0 = time.perf_counter()
+    text, _ = run_cli(lambda a: color_calib.calibrate_colors(out / "scan", verts, faces), [])
+    calib = time.perf_counter() - t0
+    done = len(list((out / "scan").glob("view_*/rgba_colorcalib.png")))
+    log(f"phase 11 (f) render_depth_cv: {CALIB_VIEWS} views of {S}^2 in {seconds:.3f} s; "
+        f"calibrate_colors {calib:.2f} s (host), {done} views written, "
+        f"{text.count('WARNING')} skipped")
+    if done != CALIB_VIEWS:
+        raise AssertionError(f"phase 11 (f): {done} calibrated views")
+
+
+def fitting_phase(device, kernels, keep: Path):
+    """Phase 11: FLAME fitting on the card ((a) - (e)) and the rest of the
+    host-side preprocessing ((f)). `keep` holds phase 10's landmark net and
+    two of its painted views. Returns the GroupNorm census of (c)."""
+    t_phase, seconds = time.perf_counter(), {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        f, model, K, gt = flame_inputs(keep / "flame", device)
+        seconds["(a) inputs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_s, rate = fit_landmark_phase(f, model, K, gt, tmp, device)
+        seconds["(b), (d) fits"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        census = kpt_phase(keep, tmp, kernels)
+        seconds["(c) kpt"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        silhouette_phase(f, model, K, gt, tmp)
+        seconds["(e) silhouette"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        calib_phase(model, gt, tmp)
+        seconds["(f) calibration"] = time.perf_counter() - t0
+    log(f"phase 11 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; "
+        f"fit_face {cli_s:.2f} s a call, {rate:.1f} LM iterations/s; phase 11 FLAME fitting: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return [("fit_face --kpt_weights", census)]
 
 
 def main() -> int:
@@ -2659,8 +3149,10 @@ def main() -> int:
     # 9. training complete
     censuses += training_complete(device, kernels, checked, card)
 
-    # 10. the eval harness
-    censuses += eval_phase(device, kernels, checked)
+    # 10. the eval harness, and 11. FLAME fitting (phase 10's landmark net)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_keep_") as keep:
+        censuses += eval_phase(device, kernels, checked, Path(keep))
+        censuses += fitting_phase(device, kernels, Path(keep))
 
     # K4 (phase 2) at every GroupNorm call the censuses found
     t0 = time.perf_counter()
@@ -2669,7 +3161,7 @@ def main() -> int:
     log(f"K4 vs plain at {len({k for _, c in censuses for k in c})} shapes: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 11. results
+    # 12. results
     train_run = f"training: {TRAIN_STEPS} steps of B={TRAIN_BATCH} ({train_ms:.2f} ms each)"
     per_step = {n: c // TRAIN_STEPS for n, c in train_launches.items()}
     serving = lambda name: (launches[name], "serving", "avatar")

@@ -4,7 +4,10 @@
     names the JAX package;
   * `from_jax_params` + `load_state_dict(strict=True)` covers the whole
     tiny parameter tree of the served model;
-  * the entry points raise without a CUDA card unless the CPU is asked for;
+  * the entry points raise without a CUDA card unless the CPU is asked for
+    (fit_face too);
+  * the rasterizer loads its own build of `native/rasterizer.cpp`, never the
+    prebuilt library beside it;
   * `chip_smoke.py` fails without a card and prints no result, and the main
     path it counts launches on is the serving avatar's (500 + 250), also
     through the generate_face CLI (phase 8).
@@ -59,8 +62,30 @@ def test_package_imports_no_jax():
                  "eval.irse", "eval.keypoint_net", "apps.eval_select_views",
                  "apps.eval_generate", "apps.eval_keypoints", "apps.eval_2d",
                  "apps.train_keypoints", "apps.calibrate_reid",
-                 "tools.make_synthetic_landmarks"):
+                 "tools.make_synthetic_landmarks", "fitting.flame", "fitting.fit",
+                 "fitting.silhouette", "apps.fit_face", "preprocessing.raster",
+                 "preprocessing.color_calib", "preprocessing.facescape_process",
+                 "preprocessing.thuman_smplx_scale", "preprocessing.fanout",
+                 "preprocessing.thuman_blender", "tools.make_synthetic_flame"):
         assert f"'morphablediffusion_torch.{name}'" in r.stdout, name
+
+
+def test_rasterizer_loads_its_own_build_not_the_prebuilt_library():
+    """The port's rasterizer is built from `native/rasterizer.cpp` into
+    `build/native/`; the prebuilt library committed beside the source is
+    never loaded."""
+    code = (
+        "import numpy as np\n"
+        "from morphablediffusion_torch.preprocessing import raster\n"
+        "v = np.asarray([[1, 1, 1], [6, 1, 1], [1, 6, 1]], np.float32)\n"
+        "print('COVERED', int((raster.rasterize_depth_px(v, [[0, 1, 2]], 8, 8) > 0).sum()))\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print('PREBUILT', 'libmdtpu_raster' in maps)\n"
+        "print('OWN', str(raster.lib_path()) in maps)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "PREBUILT False" in r.stdout and "OWN True" in r.stdout, r.stdout
+    assert "COVERED 0" not in r.stdout
 
 
 def test_no_file_names_the_jax_package():
@@ -94,6 +119,15 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         weights.from_jax_params({})
     assert resolve_device("cpu") == torch.device("cpu")
+    # fit_face: the card unless --device cpu, before any file is read
+    from morphablediffusion_torch.apps import fit_face
+    from morphablediffusion_torch.fitting import flame
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_face.main(["--input_img", "missing.png", "--flame", "missing.pkl",
+                       "--lmk_embedding", "missing.npy", "--out", "out.ply"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flame.load_model(str(REPO / "missing.pkl"))
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -254,3 +288,30 @@ def test_chip_smoke_group_norm_fp64_gate(dtype):
     margin = chip_smoke.K4_MARGIN[dtype] + chip_smoke.K4_FLIPS / x.numel()
     assert dist(gn._reference(*args)) / plain - 1 <= margin
     assert dist(gn._reference(*args[:5], 1e-5, "silu")) / plain - 1 > margin
+
+
+def test_chip_smoke_fitting_phase_helpers(monkeypatch):
+    """Phase 11's wrappers on a tiny CPU fit: `lm_stages` records each LM
+    stage's steps, seconds and host syncs (the card's sync debug mode
+    stubbed here), `recorded_fits` the canonical parameters of each
+    `fit_landmarks` call in the flat KEYS order; the FLAME widths are
+    FLAME2020's and `--kpt_weights` runs LandmarkNet once a photo."""
+    import numpy as np
+
+    from morphablediffusion_torch.fitting import fit, flame
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a, **k: None)
+    model = flame.random_model(np.random.default_rng(0), device="cpu")
+    K = np.asarray([[300.0, 0, 128], [0, 300.0, 128], [0, 0, 1]], np.float32)
+    lmk = np.random.default_rng(1).uniform(100, 150, (17, 2)).astype(np.float32)
+    stages, params = [], []
+    with chip_smoke.lm_stages(stages), chip_smoke.recorded_fits(params):
+        p, _ = fit.fit_landmarks(model, lmk, K, fit.FitConfig(steps_per_stage=2))
+    assert fit._lm_stage_runner.__name__ == "_lm_stage_runner"  # restored
+    assert [s["steps"] for s in stages] == [2, 2, 2]
+    assert all(s["syncs"] == 0 and s["seconds"] >= 0 for s in stages)
+    assert len(params) == 1 and params[0].shape == (3 + 3 + 4 + 15 + 8,)
+    np.testing.assert_array_equal(params[0][-8:], p["shape"])
+    assert (chip_smoke.FLAME_VERTICES, chip_smoke.FLAME_FACES) == (5023, 9976)
+    assert chip_smoke.LANDMARK_NORMS == 14
