@@ -166,7 +166,30 @@ Phases (any failure exits non-zero):
      --silhouette on photos painted with the ground truth's silhouette; (f)
      `render_depth_cv` and `calibrate_colors` on a 16-view 256^2 synthetic
      capture of the head; each part's seconds;
-  12. print the kernels line, the card line, and as the last line
+  12. more than one rank (`parallel/`), at full width: (a) K1 and K2 at the
+     serving shapes of one of 2 and of 4 ranks (K1 at B=8 and 4: its design,
+     cluster plan and the clusters the card holds; K2 at B=16 and 8), the
+     training kernels at 4 samples a rank, and K4 at every shape of the
+     ranks' GroupNorm censuses, each against its plain version at phase 2's
+     gates; (b) two spawned ranks sharing the card under gloo: one CFG step
+     against phase 3's (within 5e-2, no further from the fp32 model than
+     1.25x the plain step), every rank's spatial volumes bitwise equal, a
+     50-step avatar with the launches per rank (K1 350 + 150, K2 250, K4 the
+     rank's census), its final latent against the one-process avatar's
+     (relative L2 0.0505) and its images (37 dB), the collectives' host time
+     a step (staged through the host under gloo: nothing of NCCL); then
+     generate_face --view_parallel under torchrun on phase 8's documented
+     inputs with seeded weights against the one-process strip (37 dB);
+     (c) in the same ranks two Trainer steps at a global batch of 8: loss,
+     grad norm and phase 6's ten leaves against the one-process step on the
+     same draws at phase 6's gates, each rank's AdamW moments <= 0.51x one
+     process's, its peak memory; then train.py under torchrun (2 steps of
+     synth_scratch, rank 0 writes the checkpoint) resumed in one process;
+     (d) a one-rank NCCL group: (b)'s step and (c)'s train step (the same
+     gradients given to both optimizers) within 1e-6 of world 1; NCCL
+     across two cards only where the machine has two ("nccl multi-card:
+     not run (1 card)" otherwise);
+  13. print the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Fp32 references on the card run with TF32 off: both
@@ -183,6 +206,7 @@ import dataclasses
 import importlib.util
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -950,17 +974,21 @@ def gn_census(fn):
     return counts
 
 
-def avatar_census(model, batch):
+def avatar_census(model, batch, mesh=None):
     """The GroupNorm calls of one avatar: the VAE encode of
     `prepare_inference`, one denoising step (`predict_eps_cfg`; an avatar
-    runs sample_steps of them) and the decode of all views. Returns
-    ({key: calls per avatar}, {key: calls per step})."""
+    runs sample_steps of them) and the decode of all views (on a mesh, of
+    this rank's; a mesh without a group gives a rank's calls without the
+    collectives). Returns ({key: calls per avatar}, {key: calls per step})."""
+    from morphablediffusion_torch.parallel.mesh import view_range
+
     m = model.cfg
+    lo, hi = view_range(mesh, m.view_num)
     with torch.inference_mode():
         enc = gn_census(lambda: model.prepare_inference(batch))
         prep = model.prepare_inference(batch)
-        step = gn_census(lambda: one_step(model, batch, prep=prep))
-        lat = torch.zeros((1, m.view_num, m.latent_size, m.latent_size, 4), device=model.device)
+        step = gn_census(lambda: one_step(model, batch, prep=prep, mesh=mesh))
+        lat = torch.zeros((1, hi - lo, m.latent_size, m.latent_size, 4), device=model.device)
         dec = gn_census(lambda: model.decode_views(lat))
     avatar = {}
     for counts, times in ((enc, 1), (step, m.sample_steps), (dec, 1)):
@@ -1190,22 +1218,28 @@ def plain_versions():
         da.ctx_attention, da.depth_attention, fa.flash_attention, gn.group_norm_shifted = saved
 
 
-def one_step(model, batch, index: int = 25, prep=None):
+def one_step(model, batch, index: int = 25, prep=None, mesh=None):
     """Phase 3: one full-width CFG noise prediction at DDIM index `index`,
     from the same seeded noisy latents whatever the model's dtype; `prep`
-    is model.prepare_inference(batch), made here if not given."""
+    is model.prepare_inference(batch), made here if not given. On a mesh
+    (phase 12) this rank's views of those latents, every rank's eps
+    gathered in view order."""
     from morphablediffusion_torch.ops import schedules
+    from morphablediffusion_torch.parallel.collectives import all_gather_cat
+    from morphablediffusion_torch.parallel.mesh import view_range
 
     m = model.cfg
     dev = model.device
     prep = model.prepare_inference(batch) if prep is None else prep
     g = torch.Generator(dev).manual_seed(3)
     x = torch.randn((1, m.view_num, m.latent_size, m.latent_size, 4), generator=g, device=dev)
+    lo, hi = view_range(mesh, m.view_num)
     sched = schedules.make_diffusion_schedule(device=dev)
     ts = schedules.make_ddim_timesteps(m.sample_steps, sched.num_timesteps)
     t = torch.full((1,), int(ts[index]), dtype=torch.int64, device=dev)
-    eps = model.predict_eps_cfg(x, t, prep["clip_embed"], prep["x_input"], prep["v_embed"],
-                                batch, m.cfg_scale)
+    eps = model.predict_eps_cfg(x[:, lo:hi], t, prep["clip_embed"], prep["x_input"],
+                                prep["v_embed"], batch, m.cfg_scale, mesh=mesh)
+    eps = all_gather_cat(eps, 1, mesh)
     torch.cuda.synchronize()
     return eps
 
@@ -1534,6 +1568,10 @@ def kernel_entry(name, source, replaces, rows, launches, path, run, train_per_st
     return entry
 
 
+# phase 3's steps by label: (kernels, plain versions, fp32 model), on the host
+STEP_EPS = {}
+
+
 def step_check(cfg, device, label: str):
     """Phase 3 (and 7): one full-width step of `cfg` in bf16 with the
     kernels and with the plain versions, and of the fp32 model (same seeded
@@ -1561,6 +1599,7 @@ def step_check(cfg, device, label: str):
             eps32 = one_step(model32, batch)
     del model32
     torch.cuda.empty_cache()
+    STEP_EPS[label] = (eps.cpu(), eps_plain.cpu(), eps32.cpu())  # for phase 12 (b)
     step_err = rel_l2(eps, eps_plain)
     err_k, err_p = rel_l2(eps, eps32), rel_l2(eps_plain, eps32)
     log(f"{label} one predict_eps_cfg step ({n_params / 1e6:.1f} M params): eps "
@@ -3047,6 +3086,546 @@ def fitting_phase(device, kernels, keep: Path):
     return [("fit_face --kpt_weights", census)]
 
 
+# phase 12: more than one rank. On a machine with one card the ranks of (b)
+# and (c) share it under gloo (collectives staged through the
+# host); (d) runs the NCCL collectives on a one-rank group, and NCCL across
+# cards only where there are two.
+PAR_WORLDS = (2, 4)  # the per-rank shapes of (a)
+PAR_RANKS = 2  # the ranks of (b) and (c)
+PAR_TIMEOUT = 600.0  # seconds a spawned rank or torchrun may take
+# (b) the W=2 avatar's final latent against the one-process avatar's
+# (relative L2), and the W=2 CLI strip's PSNR against the one-process
+# strip: the W8A8 drift gates of phase 8 (d), stated before the first run
+PAR_LATENT_MAX_REL_L2, PAR_MIN_PSNR = 0.0505, 37.0
+NCCL_MAX_REL_L2 = 1e-6  # (d) the one-rank NCCL group against world 1
+PAR_TRAIN_SEEDS = (11, 12)  # (c) the draws of the two steps (phase 6's first)
+
+
+def all_kernels():
+    """Every kernel's CudaKernel (phase 1 builds them; the launch counts)."""
+    from morphablediffusion_torch.ops import depth_attention as da
+    from morphablediffusion_torch.ops import flash_attention as fa
+    from morphablediffusion_torch.ops import group_norm as gn
+
+    return (da.WGMMA_KERNEL, da.CLUSTER_KERNEL, da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL,
+            fa.BWD_DQ_KERNEL, da.DEPTH_KERNEL, *gn.KERNELS)
+
+
+def per_rank_shapes(cfg, world: int):
+    """The serving shapes of K1 and K2 on one of `world` ranks: its
+    N / world views (K1's B), doubled for CFG (K2's B)."""
+    k1, k2 = main_path_shapes(cfg)
+    return [dict(s, B=s["B"] // world) for s in k1], dict(k2, B=k2["B"] // world)
+
+
+def digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def rank_sampling(mesh):
+    """(b) on one rank: one CFG step (with every spatial volume the rank
+    builds digested), the rank's GroupNorm census, and one timed 50-step
+    avatar with the launch counts set to 0 just before it; the counts must
+    be K1 350 + 150, K2 250 and K4 the census. Returns the results."""
+    from morphablediffusion_torch.parallel import collectives
+    from morphablediffusion_torch.sampling import SyncDDIMSampler
+    from morphablediffusion_torch.utils.config import Config
+
+    cfg, device, kernels = Config(), mesh.device, all_kernels()
+    model = serving_model(cfg, device, seed=0)
+    batch = flagship_batch(cfg, device, seed=0)
+    volumes = []
+    build = model.spatial_volume.construct_spatial_volume
+
+    def record(*a, **k):
+        v = build(*a, **k)
+        volumes.append(digest(v))
+        return v
+
+    model.spatial_volume.construct_spatial_volume = record
+    with torch.inference_mode():
+        prep = model.prepare_inference(batch)
+        eps = one_step(model, batch, prep=prep, mesh=mesh)
+    census, _ = avatar_census(model, batch, mesh)
+    k1, k2 = per_rank_shapes(cfg, mesh.world)
+    want = avatar_launches(kernels, cfg, k1, k2, census)
+    sampler = SyncDDIMSampler(model, sample_steps=cfg.model.sample_steps, mesh=mesh)
+    gen = torch.Generator(device).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_stats()
+    for k in kernels:
+        k.launches = 0
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    images, latents = sampler.sample(batch, cfg.model.cfg_scale, generator=gen)
+    ev1.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    stats = dict(collectives.STATS)
+    if launches != want or (want["depth_attention_ctx_wgmma"], want["depth_attention_ctx_cluster"],
+                            want["flash_attention"]) != (350, 150, 250):
+        raise AssertionError(f"phase 12 (b) rank {mesh.rank}: launches {launches}, expected "
+                             f"{want} (K1 350 + 150, K2 250, K4 the census)")
+    return dict(eps=eps.cpu(), latents=latents.cpu(), images=images.cpu(), volumes=volumes,
+                launches=launches, avatar_s=ev0.elapsed_time(ev1) / 1e3, host_s=host_s,
+                serving_peak=torch.cuda.max_memory_allocated(), collectives=stats,
+                census=census)
+
+
+def train_inputs(model):
+    """(c)'s global batch (phase 6's, B=TRAIN_BATCH) and the global draws
+    of its two steps."""
+    from morphablediffusion_torch.utils.config import Config
+
+    batch = flagship_batch(Config(), model.device, seed=2, B=TRAIN_BATCH, with_targets=True)
+    draws = [model.draw_training_noise(TRAIN_BATCH, torch.Generator(model.device).manual_seed(s))
+             for s in PAR_TRAIN_SEEDS]
+    return batch, draws
+
+
+def rank_training(mesh):
+    """(c) on one rank: the ten leaves' gradients of one loss and backward
+    (the ranks' mean), then two Trainer.train_steps on the rank's rows of
+    the global batch with the global draws (the first one's GroupNorm calls
+    counted). Returns the losses, grad norms, leaves, optimizer-state bytes,
+    peak memory, the two steps' ms and the census."""
+    from morphablediffusion_torch.parallel import shard_batch
+    from morphablediffusion_torch.parallel.collectives import all_reduce_sum
+    from morphablediffusion_torch.training.trainer import Trainer
+    from morphablediffusion_torch.utils.config import Config
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(Config(), seed=0, mesh=mesh)
+    model = trainer.model
+    batch, draws = train_inputs(model)
+    local = shard_batch(batch, mesh)
+    params = dict(model.named_parameters())
+    model.training_loss(local, draws=trainer.local_draws(draws[0])).backward()
+    leaves = {n: (all_reduce_sum(params[n].grad, mesh) / mesh.world).cpu()
+              for n in NAMED_LEAVES}
+    model.zero_grad(set_to_none=True)
+    metrics = []
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    census = gn_census(lambda: metrics.append(trainer.train_step(local, draws=draws[0])))
+    metrics.append(trainer.train_step(local, draws=draws[1]))
+    ev1.record()
+    torch.cuda.synchronize()
+    return dict(train_loss=[float(m["loss"]) for m in metrics],
+                grad_norm=[float(m["grad_norm"]) for m in metrics], leaves=leaves,
+                opt_bytes=trainer.optimizer_bytes(), train_peak=torch.cuda.max_memory_allocated(),
+                train_ms=ev0.elapsed_time(ev1) / len(draws), train_census=census)
+
+
+def phase12_rank(rank: int, world: int, backend: str, init_file: str, out: str) -> None:
+    """A spawned rank of (b) and (c): its mesh (`backend`, the card
+    rank % device_count), rank_sampling then rank_training; the results to
+    out/rank<r>.pt."""
+    from morphablediffusion_torch.parallel import close_mesh, create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(backend, "cuda", rank=rank, world=world,
+                       init_method=f"file://{init_file}")
+    try:
+        res = rank_sampling(mesh)
+        torch.cuda.empty_cache()
+        res.update(rank_training(mesh))
+        torch.save(res, f"{out}/rank{rank}.pt")
+    finally:
+        close_mesh(mesh)
+
+
+def spawn_ranks(world: int, backend: str, tmp: Path):
+    """phase12_rank on `world` spawned processes; fails if one fails or has
+    not ended within PAR_TIMEOUT (every rank is then killed). Returns their
+    results by rank."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    init = tmp / f"init_{backend}"
+    procs = [ctx.Process(target=phase12_rank, args=(r, world, backend, str(init), str(tmp)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + PAR_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    failed = [(r, p.exitcode) for r, p in enumerate(procs) if p.exitcode != 0]
+    if hung or failed:
+        raise AssertionError(f"phase 12 ranks under {backend}: hung {hung}, failed (rank, exit "
+                             f"code) {failed}")
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def one_process_references(device):
+    """The one-process results (b) and (c) are held to: the avatar of
+    phase 4's seed (final latents and images), phase 6's loss and backward
+    on (c)'s first draws (kernels; the mean of the ranks' halves of the
+    batch, each a loss and backward: the batch split's own rounding; and
+    twice the plain versions: the plain-vs-plain gap), and two Trainer
+    steps on (c)'s draws with the optimizer-state bytes after them."""
+    from morphablediffusion_torch.parallel import Mesh, shard_batch
+    from morphablediffusion_torch.sampling import SyncDDIMSampler
+    from morphablediffusion_torch.training.trainer import Trainer
+    from morphablediffusion_torch.utils.config import Config
+
+    cfg = Config()
+    model = serving_model(cfg, device, seed=0)
+    batch = flagship_batch(cfg, device, seed=0)
+    sampler = SyncDDIMSampler(model, sample_steps=cfg.model.sample_steps)
+    images, latents = sampler.sample(batch, cfg.model.cfg_scale,
+                                     generator=torch.Generator(device).manual_seed(1))
+    ref = dict(images=images.cpu(), latents=latents.cpu())
+    del model, sampler, images, latents
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(cfg, seed=0)
+    model = trainer.model
+    batch, draws = train_inputs(model)
+    params = dict(model.named_parameters())
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model.training_loss(batch, draws=draws[0])
+        loss.backward()
+        torch.cuda.synchronize()
+        norm = torch.sqrt(sum(p.grad.float().pow(2).sum()
+                              for _, p in trainer.grad_params() if p.grad is not None))
+        return (float(loss.detach()), float(norm),
+                {n: params[n].grad.float().cpu() for n in NAMED_LEAVES})
+
+    ref["loss_k"], ref["norm_k"], ref["leaves_k"] = loss_and_grads()
+    # the batch split alone: the mean of the ranks' halves, in this process
+    halves = []
+    for r in range(PAR_RANKS):
+        rows = Mesh(r, PAR_RANKS, device)
+        model.zero_grad(set_to_none=True)
+        loss = model.training_loss(shard_batch(batch, rows), draws=shard_batch(draws[0], rows))
+        loss.backward()
+        halves.append((float(loss.detach()), {n: params[n].grad.float().cpu()
+                                              for n in NAMED_LEAVES}))
+    ref["loss_s"] = sum(h[0] for h in halves) / PAR_RANKS
+    ref["leaves_s"] = {n: sum(h[1][n] for h in halves) / PAR_RANKS for n in NAMED_LEAVES}
+    with plain_versions():
+        ref["loss_p"], ref["norm_p"], ref["leaves_p"] = loss_and_grads()
+        ref["loss_r"], ref["norm_r"], ref["leaves_r"] = loss_and_grads()
+    model.zero_grad(set_to_none=True)
+    metrics = [trainer.train_step(batch, draws=d) for d in draws]
+    ref.update(train_loss=[float(m["loss"]) for m in metrics],
+               grad_norm=[float(m["grad_norm"]) for m in metrics],
+               opt_bytes=trainer.optimizer_bytes())
+    del trainer, model, params
+    torch.cuda.empty_cache()
+    return ref
+
+
+def psnr_u8(a, b) -> float:
+    """PSNR in dB of two images in [-1, 1] after the CLI's uint8 rounding."""
+    to8 = lambda x: ((torch.as_tensor(x).float().clamp(-1, 1) + 1) * 127.5).round()
+    mse = float(((to8(a) - to8(b)) ** 2).mean())
+    return 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+
+
+def check_ranks(label, ranks, ref, host_staged: bool):
+    """(b) and (c) of the ranks against the one-process references: the
+    CFG step at phase 3's gates, the volumes bitwise equal, the avatar's
+    final latent and images, the training steps at phase 6's gates (2x the
+    plain-vs-plain gap plus its floor), the optimizer state per rank."""
+    eps_k, eps_p, eps32 = STEP_EPS["phase 3"]
+    r0, n = ranks[0], len(ranks)
+    step_err = rel_l2(r0["eps"], eps_k)
+    err_w, err_p = rel_l2(r0["eps"], eps32), rel_l2(eps_p, eps32)
+    lat_err = rel_l2(r0["latents"], ref["latents"])
+    psnr = psnr_u8(r0["images"], ref["images"])
+    same_volumes = all(r["volumes"] == r0["volumes"] for r in ranks)
+    log(f"{label} (b) one CFG step on {n} ranks: eps rel_l2 vs one process {step_err:.3e} "
+        f"(bound {REL_L2_STEP}); vs the fp32 model {err_w:.3e} (bound {STEP_VS_FP32_RATIO} x "
+        f"plain bf16's {err_p:.3e}); the spatial volumes bitwise equal on every rank: "
+        f"{same_volumes} ({len(r0['volumes'])} a rank)")
+    how = ("staged through the host under gloo, nothing of NCCL" if host_staged
+           else "NCCL, the host's enqueue")
+    for r, res in enumerate(ranks):
+        st = res["collectives"]
+        log(f"  rank {r}: avatar {res['avatar_s']:.3f} s (CUDA events), {res['host_s']:.3f} s "
+            f"host clock, peak {res['serving_peak'] / 2**30:.2f} GiB; launches "
+            f"{res['launches']}; collectives {st['calls']} calls, {st['bytes'] / 2**20:.1f} MiB "
+            f"in, {st['seconds'] * 1e3 / 50:.3f} ms a step by the host clock ({how})")
+    log(f"{label} (b) the avatar on {n} ranks against one process: final latent rel_l2 "
+        f"{lat_err:.4e} (bound {PAR_LATENT_MAX_REL_L2}), images PSNR {psnr:.2f} dB (bound "
+        f"{PAR_MIN_PSNR})")
+    # phase 6's gates: NOISE_FACTOR x the plain versions' run-to-run gap plus
+    # the floor. Logged beside: the batch split alone in one process (the
+    # ranks' halves averaged against the whole batch), and the ranks
+    # against that split
+    rel = lambda a, b: abs(a - b) / abs(b)
+    loss_bound = NOISE_FACTOR * rel(ref["loss_r"], ref["loss_p"]) + REL_TRAIN_LOSS
+    norm_bound = NOISE_FACTOR * rel(ref["norm_r"], ref["norm_p"]) + REL_TRAIN_GRAD
+    leaf_gap = {k: rel_l2(r0["leaves"][k], ref["leaves_k"][k]) for k in NAMED_LEAVES}
+    split_gap = {k: rel_l2(ref["leaves_s"][k], ref["leaves_k"][k]) for k in NAMED_LEAVES}
+    ranks_vs_split = {k: rel_l2(r0["leaves"][k], ref["leaves_s"][k]) for k in NAMED_LEAVES}
+    leaf_bound = {k: NOISE_FACTOR * rel_l2(ref["leaves_r"][k], ref["leaves_p"][k])
+                  + REL_TRAIN_LEAF for k in NAMED_LEAVES}
+    loss_gaps = [rel(a, b) for a, b in zip(r0["train_loss"], ref["train_loss"])]
+    norm_gaps = [rel(a, b) for a, b in zip(r0["grad_norm"], ref["grad_norm"])]
+    ratio = [r["opt_bytes"] / ref["opt_bytes"] for r in ranks]
+    log(f"{label} (c) two train steps on {n} ranks, global batch {TRAIN_BATCH}: losses "
+        f"{r0['train_loss']} vs one process {ref['train_loss']} (rel {loss_gaps}, bound "
+        f"{loss_bound:.2e}; the split alone {rel(ref['loss_s'], ref['loss_k']):.2e}); "
+        f"grad norms {r0['grad_norm']} vs {ref['grad_norm']} (rel {norm_gaps}, bound "
+        f"{norm_bound:.2e}); AdamW moments per rank {[r['opt_bytes'] for r in ranks]} B = "
+        f"{[round(x, 4) for x in ratio]} of one "
+        f"process's {ref['opt_bytes']} B (bound 0.51)")
+    for r, res in enumerate(ranks):
+        log(f"  rank {r}: {res['train_ms']:.1f} ms a step (CUDA events, the process's first "
+            f"two), peak {res['train_peak'] / 2**30:.2f} GiB")
+    for k in NAMED_LEAVES:
+        log(f"  grad rel_l2 {n} ranks vs one process {leaf_gap[k]:.3e} (bound "
+            f"{leaf_bound[k]:.3e}; the split alone {split_gap[k]:.3e}, the ranks vs the split "
+            f"in one process {ranks_vs_split[k]:.3e})  {k}")
+    bad = []
+    if not (step_err <= REL_L2_STEP and err_w <= STEP_VS_FP32_RATIO * err_p):
+        bad.append("the CFG step")
+    if not same_volumes:
+        bad.append("the spatial volumes differ between the ranks")
+    if not (lat_err <= PAR_LATENT_MAX_REL_L2 and psnr >= PAR_MIN_PSNR):
+        bad.append("the avatar")
+    if not (all(g <= loss_bound for g in loss_gaps) and all(g <= norm_bound for g in norm_gaps)
+            and all(leaf_gap[k] <= leaf_bound[k] for k in NAMED_LEAVES)):
+        bad.append("the training steps")
+    if not all(x <= 0.51 for x in ratio):
+        bad.append("the optimizer state per rank")
+    if bad:
+        raise AssertionError(f"{label}: {bad}")
+
+
+def torchrun(args, nproc: int = PAR_RANKS):
+    """`python -m torch.distributed.run --standalone` of a module with
+    `nproc` ranks, under PAR_TIMEOUT; returns its stdout, raises on
+    failure."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="4")
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        f"--nproc_per_node={nproc}", "-m", *args], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=PAR_TIMEOUT)
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun {args[0]} exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-5000:]}")
+    return r.stdout
+
+
+def read_strip(path: Path):
+    from PIL import Image
+
+    return torch.from_numpy(np.asarray(Image.open(path)).astype(np.float32))
+
+
+def cli_ranks(tmp: Path):
+    """(b) the generate_face CLI with --view_parallel under torchrun on 2
+    ranks sharing the card (gloo), on phase 8's documented inputs with
+    seeded weights (no W8A8), against the one-process CLI: the strips'
+    PSNR, and rank 0 alone writing."""
+    from morphablediffusion_torch.apps import generate_face as gf
+
+    common = ["--input_img", CLI_INPUT, "--mesh", CLI_MESH, "--cfg", CLI_CONFIG, "--ckpt",
+              "random", "--no_mica_alignment"]
+    t0 = time.perf_counter()
+    run_cli(gf.main, common + ["--output_dir", str(tmp / "one")])
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = torchrun(["morphablediffusion_torch.apps.generate_face", *common, "--output_dir",
+                    str(tmp / "two"), "--view_parallel", "--dist_backend", "gloo",
+                    "--prepare_neus2_data"])
+    two_s = time.perf_counter() - t0
+    name = f"{Path(CLI_INPUT).stem}_mesh.png"
+    one, two = read_strip(tmp / "one" / name), read_strip(tmp / "two" / name)
+    mse = float(((one - two) ** 2).mean())
+    psnr = 10 * math.log10(255 ** 2 / max(mse, 1e-12))
+    writes = out.count("wrote ")
+    log(f"phase 12 (b) generate_face --view_parallel under torchrun, {PAR_RANKS} ranks on one "
+        f"card (gloo): {two_s:.1f} s host clock (one process {one_s:.1f} s); strip PSNR "
+        f"{psnr:.2f} dB against one process (bound {PAR_MIN_PSNR}); {writes} writes (rank 0)")
+    for line in out.splitlines():
+        if line.startswith(("rank ", "seconds:")):
+            log(f"  {line}")
+    if not (psnr >= PAR_MIN_PSNR and writes == 2 and one.shape == two.shape
+            and (tmp / "two" / "neus2_data").is_dir()):
+        raise AssertionError(f"phase 12 (b) CLI: PSNR {psnr:.2f}, {writes} writes")
+
+
+def train_cli_ranks(tmp: Path):
+    """(c) train.py under torchrun on 2 ranks sharing the card (gloo): 2
+    steps of synth_scratch on a small synthetic tree and a checkpoint that
+    rank 0 alone writes, then resumed in this process (world 1) for a third
+    step."""
+    import yaml
+
+    from morphablediffusion_torch.apps import train as train_app
+    from morphablediffusion_torch.tools import make_synthetic_facescape
+
+    root = tmp / "synth"
+    run_cli(make_synthetic_facescape.main, [
+        "--out", str(root), "--subjects", "3", "--expressions", "2", "--views",
+        str(SYNTH_VIEWS), "--image_size", str(SYNTH_SIZE)])
+    raw = yaml.safe_load(SYNTH_CONFIG.read_text())
+    uid = lambda s, e: f"{s:03d}/{e:02d}"
+    raw["data"].update(data_dir=str(root / "data"), flame_assets_dir=str(root / "flame"),
+                       uids=[uid(s, e) for s in (1, 2) for e in (1, 2)],
+                       val_uids=[uid(3, 1)], num_workers=2, batch_size=2)
+    raw["train"].update(val_check_interval=0, log_every=1, max_steps=2)
+    cfg = tmp / "synth_dp.yaml"
+    cfg.write_text(yaml.safe_dump(raw))
+    args = ["-b", str(cfg), "-l", str(tmp / "runs"), "-n", "dp"]
+    t0 = time.perf_counter()
+    out = torchrun(["morphablediffusion_torch.apps.train", *args, "--dist_backend", "gloo"])
+    dp_s = time.perf_counter() - t0
+    ckpt = tmp / "runs" / "dp" / "ckpt"
+    files = sorted(p.name for p in ckpt.rglob("*.pt"))
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    log(f"phase 12 (c) train.py under torchrun, {PAR_RANKS} ranks on one card (gloo), batch 2 a "
+        f"rank: {dp_s:.1f} s host clock; step lines {steps}; checkpoint files {files}")
+    text, resume_s = run_cli(train_app.main, args + ["--resume", "--max_steps", "3"])
+    log(f"  resumed in one process: {resume_s:.1f} s")
+    if (len(steps) != 2 or files != ["params.pt", "state.pt"]
+            or (ckpt / "last" / "step").read_text() != "3"
+            or "resumed from step 2" not in text or "step 3 loss" not in text):
+        raise AssertionError(f"phase 12 (c) train.py: steps {steps}, files {files}, resume "
+                             f"{text[-500:]}")
+
+
+def nccl_one_rank(tmp: Path, device):
+    """(d) a one-rank NCCL group: (b)'s CFG step and (c)'s train step through
+    the NCCL collectives against world 1 (no group). The steps run under
+    torch's deterministic algorithms; the train step's gradients are
+    computed once and given to both optimizers (the backward has no
+    deterministic mode for every op); eps, loss, grad norm and the trainable
+    parameters after the step within NCCL_MAX_REL_L2."""
+    from morphablediffusion_torch.parallel import close_mesh, create_mesh
+    from morphablediffusion_torch.parallel.collectives import STATS, reset_stats
+    from morphablediffusion_torch.training.trainer import Trainer
+    from morphablediffusion_torch.utils.config import Config
+
+    cfg = Config()
+    mesh = create_mesh("nccl", "cuda", rank=0, world=1, init_method=f"file://{tmp / 'nccl1'}")
+    try:
+        reset_stats()
+        model = serving_model(cfg, device, seed=0)
+        batch = flagship_batch(cfg, device, seed=0)
+        # both steps under torch's deterministic algorithms: the mesh-voxel
+        # scatter's index_add_ adds by atomics on the card otherwise, and two
+        # calls of the same step then differ by more than the collectives
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with torch.inference_mode():
+                prep = model.prepare_inference(batch)
+                eps1 = one_step(model, batch, prep=prep)
+                eps_n = one_step(model, batch, prep=prep, mesh=mesh)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        step_err = rel_l2(eps_n, eps1)
+        del model, prep
+        torch.cuda.empty_cache()
+
+        one, ranked = Trainer(cfg, seed=0), Trainer(cfg, seed=0, mesh=mesh)
+        batch, draws = train_inputs(one.model)
+        loss = one.model.training_loss(batch, draws=draws[0])
+        loss.backward()
+        theirs = dict(ranked.model.named_parameters())
+        for n, p in one.model.named_parameters():
+            if p.grad is not None:
+                theirs[n].grad = p.grad.clone()
+        m_n = ranked.apply_gradients(loss.detach())
+        m_1 = one.apply_gradients(loss.detach())
+        names = [n for n, _ in one.grad_params()]
+        flat = lambda t: torch.cat([dict(t.model.named_parameters())[n].detach().reshape(-1)
+                                    for n in names])
+        param_err = rel_l2(flat(ranked), flat(one))
+        errs = {"eps": step_err, "loss": rel_l2(m_n["loss"], m_1["loss"]),
+                "grad_norm": rel_l2(m_n["grad_norm"], m_1["grad_norm"]),
+                "parameters": param_err}
+        log(f"phase 12 (d) a one-rank NCCL group against world 1: rel_l2 "
+            f"{ {k: f'{v:.3e}' for k, v in errs.items()} } (bound {NCCL_MAX_REL_L2}); "
+            f"{STATS['calls']} NCCL collectives, {STATS['bytes'] / 2**30:.2f} GiB in")
+        if not all(v <= NCCL_MAX_REL_L2 for v in errs.values()) or STATS["calls"] == 0:
+            raise AssertionError(f"phase 12 (d) one-rank NCCL: {errs}")
+        del one, ranked, theirs, loss
+        torch.cuda.empty_cache()
+    finally:
+        close_mesh(mesh)
+
+
+def parallel_kernels(cfg, device, censuses):
+    """(a) the kernels at a rank's shapes: K1 and K2 at serving on one of
+    W = 2 and 4 ranks (K1 logs its design, plan and the clusters the card
+    holds), the training kernels at TRAIN_BATCH / 2 a rank, and K4 at every
+    shape of the ranks' censuses ([(label, census)]); each against its
+    plain version at phase 2's gates."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device).manual_seed(4)
+    rn = lambda *s, std=1.0: (torch.randn(*s, generator=g, device=device) * std).bfloat16()
+    with torch.inference_mode():
+        for world in PAR_WORLDS:
+            k1, k2 = per_rank_shapes(cfg, world)
+            check_k1(k1, device, rn, 10, f"serving, one of {world} ranks")
+            check_k2(k2, device, rn, 10, f"serving, one of {world} ranks")
+    check_train_kernels(train_shapes(cfg, TRAIN_BATCH // PAR_RANKS), device)
+    with torch.inference_mode():
+        check_group_norm(censuses, device)
+    log(f"phase 12 (a) kernels at the per-rank shapes: {time.perf_counter() - t0:.1f} s")
+
+
+def parallel_phase(device, kernels):
+    """Phase 12: more than one rank ((a) - (d) in the module docstring)."""
+    from morphablediffusion_torch.parallel.mesh import Mesh
+    from morphablediffusion_torch.utils.config import Config
+
+    t_phase = time.perf_counter()
+    cfg = Config()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        ref = one_process_references(device)
+        log(f"phase 12 one-process references: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(PAR_RANKS, "gloo", tmp)
+        log(f"phase 12 (b), (c) {PAR_RANKS} spawned ranks on one card (gloo): "
+            f"{time.perf_counter() - t0:.1f} s")
+        check_ranks("phase 12 gloo", ranks, ref, host_staged=True)
+        censuses = [(f"one of {PAR_RANKS} ranks", ranks[0]["census"]),
+                    (f"training, one of {PAR_RANKS} ranks", ranks[0]["train_census"])]
+        model = serving_model(cfg, device, seed=0)
+        batch = flagship_batch(cfg, device, seed=0)
+        for world in PAR_WORLDS[1:]:  # a rank's shapes, without its collectives
+            censuses.append((f"one of {world} ranks",
+                             avatar_census(model, batch, Mesh(0, world, device))[0]))
+        del model
+        torch.cuda.empty_cache()
+        parallel_kernels(cfg, device, censuses)
+        cli_ranks(tmp)
+        train_cli_ranks(tmp)
+        nccl_one_rank(tmp, device)
+        if torch.cuda.device_count() >= PAR_RANKS:
+            (tmp / "nccl").mkdir()
+            ranks = spawn_ranks(PAR_RANKS, "nccl", tmp / "nccl")
+            check_ranks("phase 12 nccl, a card a rank", ranks, ref, host_staged=False)
+        else:
+            log(f"nccl multi-card: not run ({torch.cuda.device_count()} card)")
+    log(f"phase 12 more than one rank: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3070,8 +3649,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    kernels = (da.WGMMA_KERNEL, da.CLUSTER_KERNEL, da.KERNEL, fa.KERNEL, fa.BWD_DKV_KERNEL,
-               fa.BWD_DQ_KERNEL, da.DEPTH_KERNEL, *gn.KERNELS)
+    kernels = all_kernels()
     _cuda.build(kernels)
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s")
     for k in kernels:
@@ -3161,7 +3739,10 @@ def main() -> int:
     log(f"K4 vs plain at {len({k for _, c in censuses for k in c})} shapes: "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 12. results
+    # 12. more than one rank
+    parallel_phase(device, kernels)
+
+    # 13. results
     train_run = f"training: {TRAIN_STEPS} steps of B={TRAIN_BATCH} ({train_ms:.2f} ms each)"
     per_step = {n: c // TRAIN_STEPS for n, c in train_launches.items()}
     serving = lambda name: (launches[name], "serving", "avatar")

@@ -18,8 +18,14 @@ selects the fine conditioner, cropped to the mesh), `random` (seeded
 weights, seed 0), or a run directory of the port's train CLI (its params
 export). The JAX package's Orbax directories cannot be read without JAX.
 It runs on the CUDA card and raises without one unless `--device cpu` is
-given. `--view_parallel` shards nothing on one card; with more than one
-visible card it raises (multi-GPU serving is not ported).
+given. `--view_parallel` under torchrun shares the views among the ranks
+(one process a card, the JAX CLI's view sharding; rank 0 writes the files):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m morphablediffusion_torch.apps.generate_face --view_parallel ... \
+        [--dist_backend nccl|gloo]
+
+In one process it shards nothing, as the JAX CLI on one device.
 """
 
 from __future__ import annotations
@@ -249,7 +255,7 @@ class _Clock:
 
 def run(cfg, input_img, Ks, RTs, verts, ckpt, *, state_dict=None, seed=6033,
         cfg_scale=2.0, sample_steps=50, batch_view_num=0, eta=1.0, f32_params=False,
-        device=None):
+        device=None, mesh=None):
     """Everything between the CLI's inputs and its files: build the model of
     `cfg` (a Config), load `ckpt` (see load_params), cast it for serving
     unless f32_params, and sample one avatar of the input image (S, S, 3)
@@ -259,13 +265,15 @@ def run(cfg, input_img, Ks, RTs, verts, ckpt, *, state_dict=None, seed=6033,
     Returns (views (N, S, S, 3) float32 in [-1, 1], report): report holds
     the import report (None unless a reference checkpoint was imported),
     the conditioner and its grid, and the seconds of the model build, the
-    weight load, the serving cast and the sampling (CUDA events on the card)."""
+    weight load, the serving cast and the sampling (CUDA events on the card).
+    mesh: a `parallel.Mesh` whose ranks share the views (on mesh.device);
+    every rank returns all the views."""
     from morphablediffusion_torch.models.diffusion import MorphableDiffusion
     from morphablediffusion_torch.sampling import SyncDDIMSampler
     from morphablediffusion_torch.utils import resolve_device
     from morphablediffusion_torch.weights import cast_for_serving
 
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     m = cfg.model
     seconds = {}
     t0 = time.perf_counter()
@@ -284,7 +292,7 @@ def run(cfg, input_img, Ks, RTs, verts, ckpt, *, state_dict=None, seed=6033,
              for k, v in build_inference_batch(input_img, Ks, RTs, verts,
                                                m.max_vertices).items()}
     sampler = SyncDDIMSampler(model, sample_steps=sample_steps, eta=eta,
-                              batch_view_num=batch_view_num)
+                              batch_view_num=batch_view_num, mesh=mesh)
     gen = torch.Generator(device).manual_seed(seed)
     with _Clock(device) as clock:
         images, _ = sampler.sample(batch, cfg_scale, generator=gen)
@@ -328,8 +336,11 @@ def main(argv=None):
                         help="skip the hard-coded MICA->FaceScape alignment "
                              "(mesh already in training world coordinates)")
     parser.add_argument("--view_parallel", action="store_true",
-                        help="shard the views across the visible cards: a no-op on "
-                             "one card; more than one is not supported yet")
+                        help="under torchrun: share the views among the ranks; a no-op "
+                             "in one process")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="with --view_parallel under torchrun: the process group's "
+                             "backend (default nccl on the card, gloo on the CPU)")
     parser.add_argument("--f32_params", action="store_true",
                         help="keep fp32 weights (default: bf16 serving cast)")
     parser.add_argument("--w8a8", action="store_true",
@@ -350,10 +361,15 @@ def main(argv=None):
     from morphablediffusion_torch.utils.config import load_config
     from morphablediffusion_torch.utils.mesh_io import load_mesh_vertices
 
-    device = resolve_device(flags.device)
-    if flags.view_parallel and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError("--view_parallel over more than one card is not "
-                                  "ported yet (ROADMAP A13)")
+    mesh = None
+    if flags.view_parallel:
+        from morphablediffusion_torch.parallel import create_mesh
+
+        mesh = create_mesh(flags.dist_backend, flags.device)
+        device = mesh.device
+    else:
+        device = resolve_device(flags.device)
+    writes = mesh is None or mesh.rank == 0
     img_name = Path(flags.input_img).stem
     exp_name = Path(flags.exp_img).stem if flags.exp_img else "mesh"
 
@@ -386,22 +402,28 @@ def main(argv=None):
                         seed=flags.seed, cfg_scale=flags.cfg_scale,
                         sample_steps=flags.sample_steps,
                         batch_view_num=flags.batch_view_num, eta=flags.eta,
-                        f32_params=flags.f32_params, device=device)
+                        f32_params=flags.f32_params, device=device, mesh=mesh)
     del state_dict
 
     t0 = time.perf_counter()
-    out = Path(flags.output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    save_strip(input_img, list(views), out / f"{img_name}_{exp_name}.png")
-    print(f"wrote {out / f'{img_name}_{exp_name}.png'}")
-    if flags.prepare_neus2_data:
-        neus2_root = out / "neus2_data" / f"{img_name}_{exp_name}"
-        export_neus2(neus2_root, list(views), Ks, RTs)
-        print(f"wrote NeuS2 data to {neus2_root}")
+    if writes:
+        out = Path(flags.output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        save_strip(input_img, list(views), out / f"{img_name}_{exp_name}.png")
+        print(f"wrote {out / f'{img_name}_{exp_name}.png'}")
+        if flags.prepare_neus2_data:
+            neus2_root = out / "neus2_data" / f"{img_name}_{exp_name}"
+            export_neus2(neus2_root, list(views), Ks, RTs)
+            print(f"wrote NeuS2 data to {neus2_root}")
     report["seconds"] = dict(read=read_s, **report["seconds"],
                              write=time.perf_counter() - t0)
-    print("seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in report["seconds"].items()),
-          flush=True)
+    if writes:
+        print("seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in report["seconds"].items()),
+              flush=True)
+    if mesh is not None:
+        from morphablediffusion_torch.parallel import close_mesh
+
+        close_mesh(mesh)
     return views, report
 
 

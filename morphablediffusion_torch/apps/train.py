@@ -6,11 +6,22 @@ FaceScape and THuman datasets, the step log line (with the host's RSS),
 TensorBoard scalars where `torch.utils.tensorboard` imports, a validation
 contact sheet every `val_check_interval` steps (the DDIM sampler with the
 config's `batch_view_num`), rolling and snapshot checkpoints, the refusal to
-overwrite an existing run, and the final checkpoint. One card; `--device cpu`
-runs it on the CPU (a rehearsal at a tiny config).
+overwrite an existing run, and the final checkpoint. `--device cpu` runs it
+on the CPU (a rehearsal at a tiny config).
 
     python -m morphablediffusion_torch.apps.train -b configs/facescape.yaml \
         -l runs -n facescape [--resume] [--device cpu]
+
+Data parallel over N ranks (one process a card; `data.batch_size` is per
+rank, ZeRO-1 with `train.shard_opt_state`): start it with torchrun,
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m morphablediffusion_torch.apps.train -b ... [--dist_backend nccl|gloo]
+
+Rank 0 alone logs, writes TensorBoard, renders the validation sheet and
+writes the checkpoints; the other ranks wait for it at a barrier.
+--rss_restart_gb is refused on more than one rank (a joint re-exec of the
+ranks under torchrun is not supported).
 
 --vae_from grafts a `train_vae` file into the frozen first stage, and
 --finetune_from then imports a reference checkpoint (`utils/torch_import.py`)
@@ -125,12 +136,16 @@ def main(argv=None):
     parser.add_argument("--rss_restart_gb", type=float, default=0.0,
                         help="restart with --resume (os.execv) when the host RSS exceeds this "
                              "many GiB at a rolling-checkpoint step; 0 = off")
+    parser.add_argument("--dist_backend", type=str, default=None, choices=["nccl", "gloo"],
+                        help="under torchrun: the process group's backend (default nccl on "
+                             "the card, gloo on the CPU)")
     flags = parser.parse_args(argv)
 
     from morphablediffusion_torch.data.loader import PrefetchLoader
+    from morphablediffusion_torch.parallel import close_mesh, create_mesh
+    from morphablediffusion_torch.parallel.collectives import barrier
     from morphablediffusion_torch.sampling import SyncDDIMSampler
     from morphablediffusion_torch.training.trainer import Trainer
-    from morphablediffusion_torch.utils import resolve_device
     from morphablediffusion_torch.utils.checkpoint import CheckpointManager
     from morphablediffusion_torch.utils.config import load_config
 
@@ -138,17 +153,23 @@ def main(argv=None):
     cfg.train.seed = flags.seed
     if flags.max_steps:
         cfg.train.max_steps = flags.max_steps
-    device = resolve_device(flags.device)
+    mesh = create_mesh(flags.dist_backend, flags.device)
+    device, rank0 = mesh.device, mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
+    if flags.rss_restart_gb and mesh.world > 1:
+        close_mesh(mesh)
+        raise ValueError("--rss_restart_gb runs on one rank only: the ranks under torchrun "
+                         "cannot re-exec together")
 
     run_dir = Path(flags.logdir) / flags.name
     ckpt = CheckpointManager(run_dir / "ckpt", rolling_every=cfg.train.rolling_checkpoint_every,
-                             snapshot_every=cfg.train.checkpoint_every)
+                             snapshot_every=cfg.train.checkpoint_every, mesh=mesh)
     ckpt.assert_fresh_or_resume(flags.resume)
 
     train_ds, val_ds = build_datasets(cfg)
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device, mesh=mesh)
     if flags.resume and ckpt.latest_step() is not None:
-        print(f"resumed from step {ckpt.restore(trainer)}")
+        say(f"resumed from step {ckpt.restore(trainer)}")
     else:
         if flags.vae_from:
             graft_vae(trainer.model, flags.vae_from)
@@ -157,7 +178,8 @@ def main(argv=None):
 
             import_torch_checkpoint(flags.finetune_from, trainer.model)
     loader = PrefetchLoader(train_ds, cfg.data.batch_size, seed=cfg.data.seed,
-                            num_workers=cfg.data.num_workers)
+                            num_workers=cfg.data.num_workers, process_index=mesh.rank,
+                            process_count=mesh.world)
     val_loader = PrefetchLoader(val_ds, cfg.model.output_num, shuffle=False,
                                 num_workers=cfg.data.num_workers)
     prof_lo = prof_hi = -1
@@ -165,18 +187,20 @@ def main(argv=None):
         lo, _, hi = flags.profile_steps.partition("-")
         prof_lo, prof_hi = int(lo), int(hi or lo)
 
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    writer = None
+    if rank0:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(str(run_dir / "tb"))
-    except Exception:  # TensorBoard is optional, as in the JAX package
-        writer = None
+            writer = SummaryWriter(str(run_dir / "tb"))
+        except Exception:  # TensorBoard is optional, as in the JAX package
+            writer = None
     batches = loader.epochs()
     sampler = val_batches = prof = None
     t_last = time.perf_counter()
     try:
         while trainer.step < cfg.train.max_steps:
-            if trainer.step == prof_lo:
+            if trainer.step == prof_lo and rank0:
                 from torch.profiler import ProfilerActivity, profile
 
                 acts = [ProfilerActivity.CPU] + (
@@ -191,7 +215,7 @@ def main(argv=None):
                 path.parent.mkdir(parents=True, exist_ok=True)
                 prof.export_chrome_trace(str(path))
                 prof = None
-                print(f"profiler trace written to {path}")
+                say(f"profiler trace written to {path}")
 
             if step % cfg.train.log_every == 0:
                 loss = float(metrics["loss"])
@@ -201,7 +225,7 @@ def main(argv=None):
                        if device.type == "cuda" else 0.0)
                 lr = trainer.lr_at(trainer.opt_step)
                 grad_norm = float(metrics["grad_norm"])
-                print(f"step {step} loss {loss:.4f} grad_norm {grad_norm:.4f} lr {lr:.2e} "
+                say(f"step {step} loss {loss:.4f} grad_norm {grad_norm:.4f} lr {lr:.2e} "
                       f"{dt * 1000:.0f} ms/step peak {mem:.1f} GiB rss {rss_gib():.1f} GiB",
                       flush=True)
                 if writer:
@@ -209,7 +233,8 @@ def main(argv=None):
                                        ("grad_norm", grad_norm), ("hbm_gib", mem), ("lr", lr)):
                         writer.add_scalar(f"train/{tag}", value, step)
 
-            if cfg.train.val_check_interval and step % cfg.train.val_check_interval == 0:
+            if (cfg.train.val_check_interval and step % cfg.train.val_check_interval == 0
+                    and rank0):
                 if sampler is None:
                     sampler = SyncDDIMSampler(trainer.model, cfg.model.sample_steps,
                                               batch_view_num=cfg.model.batch_view_num)
@@ -220,6 +245,8 @@ def main(argv=None):
                 save_val_sheet(images.cpu().numpy(), {k: v.cpu().numpy()
                                                       for k, v in val_batch.items()},
                                run_dir / "images" / "val" / f"{step}.jpg")
+            if cfg.train.val_check_interval and step % cfg.train.val_check_interval == 0:
+                barrier(mesh)  # the other ranks wait for rank 0's validation
             ckpt.maybe_save(trainer, step)
             if (flags.rss_restart_gb and step % max(cfg.train.rolling_checkpoint_every, 1) == 0
                     and step < cfg.train.max_steps):
@@ -245,7 +272,8 @@ def main(argv=None):
             val_batches.close()
         if writer:
             writer.close()
-    print("training done")
+    close_mesh(mesh)
+    say("training done")
 
 
 if __name__ == "__main__":

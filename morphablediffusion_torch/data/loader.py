@@ -1,7 +1,10 @@
-"""Threaded prefetching batch loader.
+"""Threaded prefetching batch loader with per-process sharding.
 
 The PyTorch port's own copy of the JAX package's `data/loader.py`: a seeded
-permutation per epoch, worker threads that assemble items
+permutation per epoch of which each process walks its own strided shard
+(`order[process_index::process_count]`, the DistributedSampler contract; a
+process is a rank, so `batch_size` is per rank), worker threads that
+assemble items
 (image decodes and a mesh load per item; PIL and numpy release the GIL), and
 a bounded queue that keeps batches ready so the card does not wait on the
 host.
@@ -33,6 +36,8 @@ class PrefetchLoader:
         seed: int = 0,
         num_workers: int = 8,
         prefetch: int = 2,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -40,12 +45,15 @@ class PrefetchLoader:
         self.seed = seed
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
+        order = np.arange(n)
         if self.shuffle:
-            return np.random.default_rng(self.seed + epoch).permutation(n)
-        return np.arange(n)
+            order = np.random.default_rng(self.seed + epoch).permutation(n)
+        return order[self.process_index :: self.process_count]
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self.epochs()

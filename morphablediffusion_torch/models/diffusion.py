@@ -33,6 +33,7 @@ from morphablediffusion_torch.models.unet import DepthWiseUNet
 from morphablediffusion_torch.models.vae import AutoencoderKL, sample_diagonal_gaussian
 from morphablediffusion_torch.ops import schedules
 from morphablediffusion_torch.ops.embeddings import timestep_embedding, viewpoint_embedding
+from morphablediffusion_torch.parallel.mesh import view_range
 from morphablediffusion_torch.utils import resolve_device, torch_dtype
 from morphablediffusion_torch.utils.config import ModelConfig
 
@@ -154,11 +155,14 @@ class MorphableDiffusion(nn.Module):
         return self.unet(x_in, t, clip_embed, volume_feats, cfg_doubled=cfg_doubled,
                          train=train, remat=remat)
 
-    def _volume(self, x_cf, t_embed, v_embed, batch):
-        """All N noisy views (B, N, 4, h, w) -> the shared spatial volume."""
+    def _volume(self, x_cf, t_embed, v_embed, batch, views=None, mesh=None):
+        """All N noisy views (B, N, 4, h, w) -> the shared spatial volume.
+        On a mesh, x_cf holds this rank's views [lo, hi) = views of the
+        batch's N, and the per-view inputs are sliced to them."""
+        lo, hi = views or (0, v_embed.shape[1])
         return self.spatial_volume.construct_spatial_volume(
-            x_cf, t_embed, v_embed, batch["target_K"], batch["target_RT"],
-            batch["vertices"], batch["vertex_mask"])
+            x_cf, t_embed, v_embed[:, lo:hi], batch["target_K"][:, lo:hi],
+            batch["target_RT"][:, lo:hi], batch["vertices"], batch["vertex_mask"], mesh=mesh)
 
     def _frustum(self, volume, t_embed, v_embed, batch, views):
         """Frustum volumes of the views `views` ((B, TN) long) ->
@@ -171,7 +175,7 @@ class MorphableDiffusion(nn.Module):
         return feats
 
     def predict_eps_cfg(self, x_noisy, t, clip_embed, x_input_latent, v_embed, batch,
-                        cfg_scale: float, batch_view_num: int = 0):
+                        cfg_scale: float, batch_view_num: int = 0, mesh=None):
         """CFG noise prediction for all N views with doubled-batch UNet calls.
 
         x_noisy (B, N, h, w, 4); t (B,); clip_embed (B, 1, 768);
@@ -182,18 +186,28 @@ class MorphableDiffusion(nn.Module):
         UNet work of all views in one call; 0 < batch_view_num < N dividing
         N runs it over chunks of that many views, which bounds activation
         memory; both give the same numbers.
+
+        mesh: a `parallel.Mesh` (the JAX sampler's `view_sharding`): x_noisy
+        holds this rank's views `view_range(mesh, N)` of the batch's N
+        (v_embed and the batch keep all N); the volume couples them across
+        the ranks and the rest runs on this rank's views, whose eps it
+        returns.
         """
-        B, N, h, w, C = x_noisy.shape
+        B, n, h, w, C = x_noisy.shape
+        lo, hi = view_range(mesh, v_embed.shape[1])
+        if hi - lo != n:
+            raise ValueError(f"x_noisy holds {n} views, this rank's are [{lo}, {hi})")
         t_embed = self.embed_time(t)
-        x_cf = x_noisy.permute(0, 1, 4, 2, 3)  # (B, N, C, h, w)
-        volume = self._volume(x_cf, t_embed, v_embed, batch)
-        chunk = batch_view_num if 0 < batch_view_num < N else N
-        if N % chunk:
-            chunk = N
+        x_cf = x_noisy.permute(0, 1, 4, 2, 3)  # (B, n, C, h, w)
+        volume = self._volume(x_cf, t_embed, v_embed, batch, (lo, hi), mesh)
+        chunk = batch_view_num if 0 < batch_view_num < n else n
+        if n % chunk:
+            chunk = n
 
         out = []
-        for v0 in range(0, N, chunk):
-            views = torch.arange(v0, v0 + chunk, device=x_noisy.device).expand(B, chunk)
+        for v0 in range(0, n, chunk):
+            views = torch.arange(lo + v0, lo + v0 + chunk,
+                                 device=x_noisy.device).expand(B, chunk)
             volume_feats = self._frustum(volume, t_embed, v_embed, batch, views)
             x_flat = x_cf[:, v0:v0 + chunk].reshape(B * chunk, C, h, w)
             t_flat = t.repeat_interleave(chunk)

@@ -29,13 +29,19 @@ from morphablediffusion_torch.models.layers import Conv3d
 from morphablediffusion_torch.ops.grid_sample import grid_sample_3d
 
 
-def scatter_mean_voxels(vert_features, vert_idx, vert_mask, grid_shape):
+def scatter_mean_voxels(vert_features, vert_idx, vert_mask, grid_shape, ordered=False):
     """Scatter-mean per-vertex features into dense voxel grids.
 
     vert_features: (B, Nv, C); vert_idx: (B, Nv, 3) int dhw voxel indices;
     vert_mask: (B, Nv) {0, 1}; grid_shape: (Gd, Gh, Gw). Out-of-grid and
     masked vertices are dropped. Returns (grid (B, C, Gd, Gh, Gw),
     occupancy (B, 1, Gd, Gh, Gw)).
+
+    On the card `index_add_` adds a voxel's vertices by atomics, in any
+    order; ordered=True adds them in index order (`index_put_` with
+    accumulate sorts them, as `index_add_` does under torch's deterministic
+    algorithms), so the grid has the same bits in every call: the ranks of
+    a mesh, which each build the whole volume, need that.
     """
     Gd, Gh, Gw = grid_shape
     B, Nv, C = vert_features.shape
@@ -47,7 +53,11 @@ def scatter_mean_voxels(vert_features, vert_idx, vert_mask, grid_shape):
     flat = flat + torch.arange(B, device=flat.device)[:, None] * G
     weights = inb.to(vert_features.dtype)
     feat_sum = torch.zeros(B * G, C, dtype=vert_features.dtype, device=vert_features.device)
-    feat_sum.index_add_(0, flat.reshape(-1), (vert_features * weights[..., None]).reshape(-1, C))
+    values = (vert_features * weights[..., None]).reshape(-1, C)
+    if ordered:
+        feat_sum.index_put_((flat.reshape(-1),), values, accumulate=True)
+    else:
+        feat_sum.index_add_(0, flat.reshape(-1), values)
     count = torch.zeros(B * G, dtype=vert_features.dtype, device=vert_features.device)
     count.index_add_(0, flat.reshape(-1), weights.reshape(-1))
     grid = feat_sum / torch.clamp(count, min=1.0)[:, None]
@@ -98,14 +108,14 @@ class MeshVoxelNet(nn.Module):
             self.add_module(f"norm{i}", MaskedInstanceNorm(ch))
             cin = ch
 
-    def forward(self, vert_features, vert_dhw, min_dhw, vert_mask, query_dhw):
+    def forward(self, vert_features, vert_dhw, min_dhw, vert_mask, query_dhw, ordered=False):
         """vert_features (B, Nv, C); vert_dhw (B, Nv, 3) metric (z, y, x);
-        min_dhw (B, 3); vert_mask (B, Nv); query_dhw (B, ..., 3) metric.
-        Returns (B, channels[-1], ...)."""
+        min_dhw (B, 3); vert_mask (B, Nv); query_dhw (B, ..., 3) metric;
+        ordered: see scatter_mean_voxels. Returns (B, channels[-1], ...)."""
         B = vert_features.shape[0]
         idx = torch.round((vert_dhw - min_dhw[:, None, :]) / self.voxel_size).to(torch.int64)
         h, occ = scatter_mean_voxels(vert_features.to(self.dtype), idx, vert_mask,
-                                     self.grid_shape)
+                                     self.grid_shape, ordered)
         mask = occ
         for i in range(self.num_layers):
             if i >= 2:
@@ -232,13 +242,13 @@ class FineMeshVoxelNet(nn.Module):
         self.dtype = dtype
         self.net = FineSparseConvNet(dtype)
 
-    def forward(self, vert_features, vert_dhw, min_dhw, vert_mask, query_dhw):
+    def forward(self, vert_features, vert_dhw, min_dhw, vert_mask, query_dhw, ordered=False):
         """Same contract as MeshVoxelNet.forward."""
         B = vert_features.shape[0]
         Gd, Gh, Gw = self.grid_shape
         idx = torch.round((vert_dhw - min_dhw[:, None, :]) / self.voxel_size).to(torch.int64)
         grid, occ = scatter_mean_voxels(vert_features.to(self.dtype), idx, vert_mask,
-                                        self.grid_shape)
+                                        self.grid_shape, ordered)
         max_dhw = torch.where(vert_mask[..., None] > 0, vert_dhw,
                               torch.full_like(vert_dhw, -1e9)).amax(1)
         out_sh = torch.ceil((max_dhw - min_dhw) / self.voxel_size).to(torch.int64)

@@ -10,6 +10,14 @@ Counterpart of the JAX package's `models/spatial_volume.py::SpatialVolumeNet`:
     and queries it back on the grid -> (B, 64, V, V, V). With
     `use_spatial_volume` the SpatialTime3DNet of the view-major unprojected
     volume (B, N*16, V, V, V) is added to it.
+  * on a mesh (`parallel/mesh.py`) a rank passes its own views: the view
+    mean is its fp32 sum over the rank's views, summed over the ranks
+    (`all_reduce_sum`) and divided by the global view count, and with
+    `use_spatial_volume` the unprojected views are gathered in view order.
+    The rest of the volume is the same computation on every rank, its
+    mesh-voxel scatter in index order (its atomics on the card would make
+    the bits vary from call to call), so all ranks hold a bitwise-identical
+    volume;
   * `construct_view_frustum_volume` builds a (D, h, w) camera-frustum ray
     volume per target view with near/far = camera distance -+ L_f, samples the
     spatial volume along it, and runs FrustumTV3DNet -> {width: volume}.
@@ -33,6 +41,7 @@ from morphablediffusion_torch.models.conditioner import (
 )
 from morphablediffusion_torch.models.mesh_voxel import FineMeshVoxelNet, MeshVoxelNet
 from morphablediffusion_torch.ops import geometry
+from morphablediffusion_torch.parallel.collectives import all_gather_cat, all_reduce_sum
 from morphablediffusion_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
 
 
@@ -82,11 +91,14 @@ class SpatialVolumeNet(nn.Module):
         return self.input_image_size // 8
 
     def construct_spatial_volume(self, x, t_embed, v_embed, target_Ks, target_RTs,
-                                 vertices, vert_mask):
+                                 vertices, vert_mask, mesh=None):
         """x: (B, N, 4, h, w) noisy latents; t_embed: (B, td); v_embed:
         (B, N, vd); target_Ks: (B, N, 3+, 3+); target_RTs: (B, N, 3, 4);
         vertices: (B, Nv, 3) world xyz; vert_mask: (B, Nv).
-        Returns (B, C_vol, V, V, V)."""
+        Returns (B, C_vol, V, V, V).
+
+        mesh: a `parallel.Mesh` with a group: x and the per-view inputs are
+        this rank's N views of the world's N * mesh.world."""
         B, N, C_in, h, w = x.shape
         V, L = self.spatial_volume_size, self.spatial_volume_length
 
@@ -104,7 +116,11 @@ class SpatialVolumeNet(nn.Module):
             self.projection)  # (B*N, V, V, V, 2)
         unproj = grid_sample_2d(feats, coords)  # (B*N, 16, V, V, V)
         C = unproj.shape[1]
-        vol_mean = unproj.reshape(B, N, C, V, V, V).float().mean(1).to(unproj.dtype)
+        if mesh is None or mesh.group is None:
+            vol_mean = unproj.reshape(B, N, C, V, V, V).float().mean(1).to(unproj.dtype)
+        else:
+            total = all_reduce_sum(unproj.reshape(B, N, C, V, V, V).float().sum(1), mesh)
+            vol_mean = (total / (N * mesh.world)).to(unproj.dtype)
 
         vert_feats = grid_sample_3d(vol_mean, vertices / L)  # (B, 16, Nv)
         smpl_feats = self.smpl_feature_extractor(vert_feats.transpose(1, 2))
@@ -113,11 +129,14 @@ class SpatialVolumeNet(nn.Module):
         big = torch.tensor(1e9, dtype=vertices.dtype, device=vertices.device)
         min_dhw = torch.where(vert_mask[..., None] > 0, vert_dhw, big).amin(1)
         query_dhw = grid_xyz.flip(-1)[None].expand(B, V, V, V, 3)
-        volume = self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw)
+        # on a mesh every rank builds the whole volume, the same bits on each
+        volume = self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw,
+                                 ordered=mesh is not None and mesh.group is not None)
         if self.use_spatial_volume:
             # view-major channels n * 16 + c, as the JAX package's
             # (B, V, V, V, N*16) volume
-            mv = unproj.reshape(B, N * C, V, V, V)
+            mv = all_gather_cat(unproj.reshape(B, N, C, V, V, V), 1, mesh)
+            mv = mv.reshape(B, -1, V, V, V)
             volume = volume + self.spatial_volume_feats(mv, t_embed)
         return volume
 

@@ -1,7 +1,6 @@
-"""One-card trainer of the PyTorch port.
+"""Trainer of the PyTorch port.
 
-Counterpart of the JAX package's `training/trainer.py` on one device (its
-data parallelism and ZeRO-1 optimizer-state sharding are ROADMAP A13):
+Counterpart of the JAX package's `training/trainer.py`:
 
   * parameters labelled frozen / base / cond (`param_labels`): VAE and CLIP
     frozen; the spatial-volume net and the model-level time MLP at
@@ -19,7 +18,17 @@ data parallelism and ZeRO-1 optimizer-state sharding are ROADMAP A13):
   * gradient accumulation with optax.MultiSteps semantics: the running mean
     of k micro-step gradients drives one optimizer step every k micro-steps;
   * `train_step` returns loss, grad_norm and step (micro-steps before this
-    one), and draws its noise from the trainer's own `torch.Generator`.
+    one), and draws its noise from the trainer's own `torch.Generator`;
+  * data parallel on a `parallel.Mesh` with a group (the JAX "data" axis):
+    each rank takes its rows of the global batch (the loader's shard, or
+    `shard_batch`), draws the GLOBAL batch's noise from the one generator and
+    slices its rows, so that a step on W ranks is the one-process step on
+    the global batch; the loss is the global mean, the gradients are
+    reduced into flat fp32 buffers and AdamW runs on them
+    (`training/zero.py`), its moments and the accumulator sharded over the
+    ranks with `config.train.shard_opt_state` (ZeRO-1; the numbers are the
+    same without). Checkpoints hold torch.optim.AdamW's state dict whatever
+    the world.
 """
 
 from __future__ import annotations
@@ -29,7 +38,10 @@ from typing import Dict, Optional
 import torch
 
 from morphablediffusion_torch.models.diffusion import MorphableDiffusion, TrainingDraws
+from morphablediffusion_torch.parallel.collectives import all_reduce_sum
+from morphablediffusion_torch.parallel.mesh import shard_batch
 from morphablediffusion_torch.training.lr import lambda_linear_schedule
+from morphablediffusion_torch.training.zero import ShardedAdamW
 from morphablediffusion_torch.utils.config import Config
 from morphablediffusion_torch.weights import NORM_MODULES, seeded_params
 
@@ -78,13 +90,18 @@ class Trainer:
     """
 
     def __init__(self, config: Config, device=None, seed: Optional[int] = None,
-                 model: Optional[MorphableDiffusion] = None):
+                 model: Optional[MorphableDiffusion] = None, mesh=None):
         """model: the MorphableDiffusion to train (its weights as given);
         else a new one with weights made from `seed` (default
-        config.train.seed)."""
+        config.train.seed). mesh: a `parallel.Mesh`; with a group the step
+        is data parallel over its ranks (the model then lives on
+        mesh.device)."""
         self.config = config
+        self.mesh = mesh if mesh is not None and mesh.group is not None else None
         t = config.train
         seed = t.seed if seed is None else seed
+        if self.mesh is not None:
+            device = self.mesh.device
         if model is None:
             model = seeded_params(MorphableDiffusion(config.model, device=device), seed)
         self.model = model.train()
@@ -102,6 +119,16 @@ class Trainer:
                   for g, mult in ((BASE, 1.0), (COND, t.cond_lr_mult))]
         self.optimizer = torch.optim.AdamW(groups, lr=0.0, betas=BETAS, eps=EPS,
                                            weight_decay=WEIGHT_DECAY)
+        self.zero = None
+        if self.mesh is not None:
+            # the flat buffers of the mesh: base, cond, and the frozen
+            # parameters that get a gradient (they count in grad_norm)
+            named = self.grad_params()
+            self.zero = ShardedAdamW(
+                [(g, [(n, p) for n, p in named if self.labels[n] == g], mult, g != FROZEN)
+                 for g, mult in ((BASE, 1.0), (COND, t.cond_lr_mult), (FROZEN, 0.0))
+                 if any(self.labels[n] == g for n, _ in named)],
+                self.mesh, t.shard_opt_state, BETAS, EPS, WEIGHT_DECAY)
         self.schedule = lambda_linear_schedule(t.base_learning_rate, t.warm_up_steps,
                                                t.cycle_length, t.f_start, t.f_max, t.f_min)
         self.accumulate = max(1, t.accumulate_grad_batches)
@@ -122,19 +149,36 @@ class Trainer:
     def train_step(self, batch, draws: Optional[TrainingDraws] = None) -> Dict:
         """One micro-step: loss, backward, and an optimizer step every
         `accumulate_grad_batches` micro-steps. draws: the step's random draws
-        injected (tests), else they come from the trainer's generator."""
+        injected (tests), else they come from the trainer's generator; on a
+        mesh the GLOBAL batch's draws, of which this rank takes its rows."""
         self.model.zero_grad(set_to_none=True)
+        if self.zero is not None:
+            if draws is None:
+                B = batch["target_image"].shape[0] * self.mesh.world
+                draws = self.model.draw_training_noise(B, self.generator)
+            draws = self.local_draws(draws)
         loss = self.model.training_loss(batch, draws=draws, generator=self.generator)
         loss.backward()
-        named = self.grad_params()
-        for _, p in named:
-            # a parameter this forward did not use (the single-key
-            # cross-attentions' q and k) gets a zero gradient: torch's AdamW
-            # skips a None gradient, optax.adamw still decays the parameter
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = {n: p.grad for n, p in named}
-        grad_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
+        return self.apply_gradients(loss)
+
+    def apply_gradients(self, loss) -> Dict:
+        """After `loss.backward()`: grad_norm, accumulation and the optimizer
+        step; returns the step's metrics. On a mesh the gradients and the
+        loss are reduced over the ranks first."""
+        if self.zero is not None:
+            grads = self.zero.reduce_grads()
+            grad_norm = torch.sqrt(self.zero.sq_norm(grads))
+            loss = all_reduce_sum(loss, self.mesh) / self.mesh.world
+        else:
+            named = self.grad_params()
+            for _, p in named:
+                # a parameter this forward did not use (the single-key
+                # cross-attentions' q and k) gets a zero gradient: torch's
+                # AdamW skips a None gradient, optax.adamw still decays it
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = {n: p.grad for n, p in named}
+            grad_norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
 
         if self.accumulate > 1:
             mini = self.step % self.accumulate
@@ -143,34 +187,66 @@ class Trainer:
             for n, g in grads.items():  # optax.MultiSteps' running mean
                 self._acc[n] += (g - self._acc[n]) / (mini + 1)
             if mini == self.accumulate - 1:
-                for n, p in named:
-                    p.grad = self._acc[n].clone()
-                self._apply_update()
+                self._apply_update(self._acc)
                 self._acc = None
-        else:
-            self._apply_update()
+        else:  # in one process the optimizer reads the parameters' gradients
+            self._apply_update(grads if self.zero is not None else None)
         metrics = {"loss": loss.detach(), "grad_norm": grad_norm.detach(), "step": self.step}
         self.step += 1
         return metrics
 
-    def _apply_update(self) -> None:
+    def local_draws(self, draws: TrainingDraws) -> TrainingDraws:
+        """This rank's rows of the global batch's draws (vae_target's N rows
+        a sample are sample-major, so its equal shards are the samples')."""
+        return {k: v.to(self.device) for k, v in shard_batch(draws, self.mesh).items()}
+
+    def optimizer_bytes(self) -> int:
+        """Bytes of AdamW moments this rank holds (fp32)."""
+        if self.zero is not None:
+            return 4 * self.zero.moment_elements()
+        return sum(t.numel() * t.element_size() for st in self.optimizer.state.values()
+                   for k, t in st.items() if k != "step")
+
+    def _apply_update(self, grads) -> None:
+        """The optimizer step at this step's learning rate on `grads` (on a
+        mesh this rank's shards; in one process {name: gradient}, or None
+        for the parameters' own)."""
         lr = self.lr_at(self.opt_step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_mult"]
-        self.optimizer.step()
+        if self.zero is not None:
+            self.zero.step(grads, lr)
+        else:
+            if grads is not None:
+                for n, p in self.grad_params():
+                    p.grad = grads[n].clone()
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr * group["lr_mult"]
+            self.optimizer.step()
         self.opt_step += 1
 
     # checkpoint state
 
     def state_dict(self) -> Dict:
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+        """The whole training state, the same whatever the world (on a mesh
+        the moments and the accumulator are gathered: every rank must
+        call it)."""
+        optimizer, acc = self.optimizer.state_dict(), self._acc
+        if self.zero is not None:
+            optimizer = self.zero.state_dict(optimizer)
+            acc = None if acc is None else self.zero.gathered(acc)
+        return {"model": self.model.state_dict(), "optimizer": optimizer,
                 "step": self.step, "opt_step": self.opt_step,
-                "generator": self.generator.get_state(), "acc": self._acc}
+                "generator": self.generator.get_state(), "acc": acc}
 
     def load_state_dict(self, state: Dict) -> None:
+        """Load a state_dict written at any world (on a mesh this rank
+        takes its shards)."""
         self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
         self.step, self.opt_step = state["step"], state["opt_step"]
         self.generator.set_state(state["generator"].cpu())
         acc = state["acc"]
+        if self.zero is not None:
+            self.zero.load_state_dict(state["optimizer"])
+            self._acc = None if acc is None else self.zero.shards_of(acc)
+            return
+        self.optimizer.load_state_dict(state["optimizer"])
         self._acc = None if acc is None else {n: t.to(self.device) for n, t in acc.items()}

@@ -13,6 +13,11 @@ state_dict alone.
     ckpt_dir/last/step              its step, as text
     ckpt_dir/snapshots/<step>.pt    permanent snapshots
     ckpt_dir/params/params.pt       params export of the newest rolling step
+
+On a `parallel.Mesh` with a group every rank builds the state (the trainer
+gathers its sharded optimizer state), rank 0 alone writes it, and the other
+ranks wait for it at a barrier; every rank restores. Rank 0 decides whether
+a run would be overwritten, and every rank raises on its verdict.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from morphablediffusion_torch.parallel.collectives import all_reduce_sum, barrier
 
 
 def _save(obj, path: Path) -> None:
@@ -34,7 +41,10 @@ def _save(obj, path: Path) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir, rolling_every: int = 1000, snapshot_every: int = 2000):
+    def __init__(self, ckpt_dir, rolling_every: int = 1000, snapshot_every: int = 2000,
+                 mesh=None):
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
         self.ckpt_dir = Path(ckpt_dir).absolute()
         self.rolling_every = rolling_every
         self.snapshot_every = snapshot_every
@@ -43,7 +53,11 @@ class CheckpointManager:
 
     def assert_fresh_or_resume(self, resume: bool) -> None:
         """Refuse to overwrite an existing run unless it is resumed."""
-        if not resume and self.latest_step() is not None:
+        exists = self.writer and self.latest_step() is not None
+        if self.mesh is not None and self.mesh.group is not None:  # rank 0's verdict
+            exists = bool(all_reduce_sum(torch.tensor([float(exists)], device=self.mesh.device),
+                                        self.mesh) > 0)
+        if not resume and exists:
             raise RuntimeError(f"checkpoints exist under {self.ckpt_dir}; pass --resume "
                                "to continue or choose a new run directory")
 
@@ -55,12 +69,14 @@ class CheckpointManager:
         if not (rolling or snapshot):
             return
         state = {"step": step, "trainer": trainer.state_dict()}
-        if rolling:
-            _save(state, self.last)
-            _save(trainer.model.state_dict(), self.params)
-            self.last.with_name("step").write_text(str(step))
-        if snapshot:
-            _save(state, self.ckpt_dir / "snapshots" / f"{step}.pt")
+        if self.writer:
+            if rolling:
+                _save(state, self.last)
+                _save(trainer.model.state_dict(), self.params)
+                self.last.with_name("step").write_text(str(step))
+            if snapshot:
+                _save(state, self.ckpt_dir / "snapshots" / f"{step}.pt")
+        barrier(self.mesh)
 
     def latest_step(self) -> Optional[int]:
         step_file = self.last.with_name("step")

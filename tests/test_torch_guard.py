@@ -1,7 +1,8 @@
 """Guards of the PyTorch port's boundaries.
 
-  * the package imports neither JAX nor the JAX package, and no file of it
-    names the JAX package;
+  * the package imports neither JAX nor the JAX package (its multi-rank
+    modules `parallel/` and `training/zero.py` too), and no file of it names
+    the JAX package;
   * `from_jax_params` + `load_state_dict(strict=True)` covers the whole
     tiny parameter tree of the served model;
   * the entry points raise without a CUDA card unless the CPU is asked for
@@ -66,7 +67,8 @@ def test_package_imports_no_jax():
                  "fitting.silhouette", "apps.fit_face", "preprocessing.raster",
                  "preprocessing.color_calib", "preprocessing.facescape_process",
                  "preprocessing.thuman_smplx_scale", "preprocessing.fanout",
-                 "preprocessing.thuman_blender", "tools.make_synthetic_flame"):
+                 "preprocessing.thuman_blender", "tools.make_synthetic_flame",
+                 "parallel", "parallel.mesh", "parallel.collectives", "training.zero"):
         assert f"'morphablediffusion_torch.{name}'" in r.stdout, name
 
 

@@ -81,3 +81,22 @@ def test_unfused_blocks_at_serving_match_jax(monkeypatch):
     r = sampler_run(cfg)
     assert widths == {"fused": {8, 4}, "unfused": {2, 1}}
     assert_slice_matches(r)
+
+
+@pytest.mark.parametrize("world,train", [(2, False), (4, False), (2, True)])
+def test_a_rank_routes_as_one_card(world, train):
+    """On one of `world` ranks a DepthTransformer sees N / world views at
+    serving (a quarter or half of K1's batch) and batch_size / world samples
+    in training: every block takes the chain it takes on one card, and a
+    fused block the same K1 design (its G, or the cluster design's tiles a
+    cluster, may differ with the batch)."""
+    cfg = t_config.Config()
+    B = cfg.data.batch_size if train else cfg.model.view_num
+    one = chip_smoke.depth_blocks(cfg, B, train)
+    rank = chip_smoke.depth_blocks(cfg, B // world, train)
+    assert [s["fused"] for s in rank] == [s["fused"] for s in one]
+    for a, b in zip(one, rank):
+        assert b["B"] == a["B"] // world
+        if a["fused"]:
+            design = lambda s: da.ctx_design(s["B"], s["W"] ** 2, s["Cc"], s["Ci"], s["heads"])
+            assert design(b).kernel == design(a).kernel, b
