@@ -35,7 +35,7 @@ Phases (any failure exits non-zero):
      (cluster size, tile or pack, grid, shared memory) and the clusters the
      card holds at once (cudaOccupancyMaxActiveClusters). K4 (GroupNorm)
      is held the same way at every GroupNorm call that the censuses of
-     phases 3, 6, 7, 8, 9, 10 and 11 find, after phase 11 (and at every shape no
+     phases 3, 6, 7, 8, 9, 10, 11 and 13 find, after phase 13 (and at every shape no
      further from an fp64 GroupNorm than the plain version is, times 1 + a
      margin; K4 given eps x 10 must fail that gate at some shape of each
      dtype),
@@ -55,9 +55,15 @@ Phases (any failure exits non-zero):
      in its Hopper design, W=32 and W=16; 150 in the cluster design, W=8
      and W=4; 0 in the WMMA one), the flash
      kernel 250 times and K4 once per GroupNorm (5 902)
-     call of the census, and the images must be finite and not constant;
-  5. profile one denoising step with torch.profiler: the device's busy and
-     idle share and its kernel time by group and by name;
+     call of the census, the images must be finite and not constant, and
+     the warm-up and the timed avatar (the same seed and noise) must be
+     bitwise equal, latents and images (the serving path scatters its mesh
+     voxels in order);
+  5. profile one denoising step with torch.profiler
+     (`morphablediffusion_torch/tools/profile_step.py`): the device's busy
+     and idle share and its kernel time by group and by name; then the
+     step's mesh-voxel scatter at its inputs, ordered against index_add_
+     (device ms, and the ordered one bitwise equal in two calls);
   6. training: `Config()` defaults at full width and depth (remat on),
      seeded weights, a synthetic batch of 8 samples x 16 target views plus
      the input view. One loss and backward with the kernels and with the
@@ -189,7 +195,23 @@ Phases (any failure exits non-zero):
      gradients given to both optimizers) within 1e-6 of world 1; NCCL
      across two cards only where the machine has two ("nccl multi-card:
      not run (1 card)" otherwise);
-  13. print the kernels line, the card line, and as the last line
+  13. (run after phase 11, before K4's check) the JAX package's weight
+     files and the repository's quality and sizing tools on the port
+     (`morphablediffusion_torch/tools/`): (a) the shipped landmark net
+     `artifacts/landmark_net_synth.msgpack` read without flax, the held-out
+     tree of `artifacts/pck_heldout.json` regenerated from its recipe (40
+     subjects x 2 expressions x 16 views at 128^2, subjects 038 - 040 held
+     out), eval_landmark_net on the card plain and shifted (K4 once per
+     GroupNorm call, its 128^2 fp32 shapes added to K4's check), the plain
+     PCK@0.2 and mean pixel error within 0.01 and 0.1 px of the artifact's;
+     (b) eval_flame_fit, 4 trials at FLAME2020 widths at 0 and 0.5 px of
+     noise; (c) make_flagship_ckpt (its fp32 file) and
+     int8_trajectory on it at full width, gated as phase 8 (d); (d)
+     memory_report at batch 8 and 16 views; (e) eval_matting (6 samples)
+     and eval_anchors on phase 10's tree; (f) eval_synth_scratch.sh on phase
+     9's run (10 sampler steps), eval_2d's metrics finite; one part at a
+     time, each part's seconds;
+  14. print the kernels line, the card line, and as the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Fp32 references on the card run with TF32 off: both
@@ -220,6 +242,10 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from morphablediffusion_torch.tools.common import card_line, flagship_batch  # noqa: E402
+from morphablediffusion_torch.tools.profile_step import (  # noqa: E402
+    device_events, profile_report, profile_step)
 
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet).
 PEAK_BF16_FLOPS = 989e12
@@ -278,13 +304,6 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds of fn() over `iters` runs, CUDA events."""
     for _ in range(warmup):
@@ -297,43 +316,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def flagship_batch(cfg, device, seed: int = 0, B: int = 1, with_targets: bool = False):
-    """Synthetic flagship-shaped batch, the JAX layout: B samples, view_num
-    targets on a ring of cameras at distance 4 looking at the origin,
-    image_size^2 input image, max_vertices vertices in [-0.2, 0.2]^3, and
-    with_targets the view_num target images (training)."""
-    m = cfg.model
-    rng = np.random.default_rng(seed)
-    N, S, Nv = m.view_num, m.image_size, m.max_vertices
-    poses = []
-    for i in range(N):
-        a = 2 * np.pi * i / max(N, 1) * 0.2
-        R = np.asarray([[np.cos(a), 0, -np.sin(a)], [0, 1, 0], [np.sin(a), 0, np.cos(a)]])
-        t = -R @ (R.T @ np.asarray([0, 0, -4.0]))
-        poses.append(np.concatenate([R, t[:, None]], axis=1))
-    K = np.eye(4)
-    if m.projection == "perspective":
-        K[:3, :3] = [[80.0, 0, S / 2], [0, 80.0, S / 2], [0, 0, 1]]
-    else:
-        K[0, 0] = K[1, 1] = 1 / 0.6
-    verts = rng.uniform(-0.2, 0.2, size=(B, Nv, 3))  # drawn first, as bench.py's batch
-    arrays = {
-        "input_image": rng.uniform(-1, 1, (B, S, S, 3)),
-        "input_elevation": np.zeros((B, 1)),
-        "input_azimuth": np.zeros((B, 1)),
-        "target_elevation": np.zeros((B, N)),
-        "target_azimuth": np.zeros((B, N)),
-        "target_K": np.broadcast_to(K, (B, N, 4, 4)),
-        "target_RT": np.broadcast_to(np.stack(poses), (B, N, 3, 4)),
-        "vertices": verts,
-        "vertex_mask": np.ones((B, Nv)),
-    }
-    if with_targets:
-        arrays["target_image"] = rng.uniform(-1, 1, (B, N, S, S, 3))
-    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
-            for k, v in arrays.items()}
 
 
 def serving_model(cfg, device, seed: int = 0, cast: bool = True):
@@ -500,14 +482,6 @@ def k3_plan_line(s, lib):
                                                  plan.vec)
     return (f"plan cluster={plan.cluster} tile={plan.tile} vec={plan.vec} grid={plan.blocks} "
             f"blocks smem={plan.smem} B, max active clusters {active}")
-
-
-def device_events(prof):
-    """The device activities of a torch.profiler run: kernels, copies and
-    sets, without the device-side spans of user annotations (such as
-    `Optimizer.step#AdamW.step`), which overlap the kernels inside them."""
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
 
 
 def queued_ms(fn, iters: int = 10) -> float:
@@ -1244,99 +1218,37 @@ def one_step(model, batch, index: int = 25, prep=None, mesh=None):
     return eps
 
 
-def profile_step(sampler, batch, index: int = 25):
-    """Phase 5: torch.profiler over one denoising step (predict_eps_cfg and
-    ddim_step at DDIM index `index`), after a warm-up step. Prints the
-    device's busy and idle share of the step and its kernel time by group
-    and by name."""
-    from morphablediffusion_torch.ops import schedules
+def scatter_cost(model, batch):
+    """Phase 5: the mesh-voxel scatter of one serving step (one a step),
+    its inputs captured from a step: device ms of the serving path's
+    ordered scatter (`index_put_` with accumulate, sorted) against
+    `index_add_` (atomics, which training keeps), and whether
+    each gives the same bits in two calls. Returns {ordered: ms}."""
+    from morphablediffusion_torch.models import mesh_voxel
 
-    model = sampler.model
-    m, dev = model.cfg, model.device
-    g = torch.Generator(dev).manual_seed(5)
-    shape = (1, m.view_num, m.latent_size, m.latent_size, 4)
-    x, noise = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
-    t = torch.full((1,), int(sampler.timesteps[index]), dtype=torch.int64, device=dev)
+    real, calls = mesh_voxel.scatter_mean_voxels, []
+    mesh_voxel.scatter_mean_voxels = lambda *a, **k: calls.append((a, k)) or real(*a, **k)
+    try:
+        with torch.inference_mode():
+            one_step(model, batch)
+    finally:
+        mesh_voxel.scatter_mean_voxels = real
+    if len(calls) != 1 or calls[0][0][4:] != (True,):
+        raise AssertionError(f"phase 5: the serving step's scatters {[(c[0][4:], c[1]) for c in calls]}")
+    feats, idx, mask, grid = calls[0][0][:4]
+    out, same = {}, {}
     with torch.inference_mode():
-        prep = model.prepare_inference(batch)
-        profile_report("phase 5 one denoising step", lambda: schedules.ddim_step(
-            x, model.predict_eps_cfg(x, t, prep["clip_embed"], prep["x_input"],
-                                     prep["v_embed"], batch, m.cfg_scale),
-            index, sampler.ddim, noise))
-
-
-def kernel_group(name: str) -> str:
-    """The profiler's group of a device kernel: the port's kernels by their
-    own symbols, then the kernels of PyTorch's SDPA (its flash
-    `pytorch_flash::...`, memory-efficient `fmha_...` or cuDNN `..._sdpa_...`
-    backends), then the library groups."""
-    low = name.lower()
-    for key, group in (("md_ctx_wgmma_kernel", "K1 depth_attention_ctx (wgmma)"),
-                       ("md_ctx_cluster_kernel", "K1 depth_attention_ctx (cluster)"),
-                       ("depth_ctx_kernel", "K1 depth_attention_ctx (WMMA)"),
-                       ("md_flash_fwd_kernel", "K2 flash_attention"),
-                       ("md_flash_bwd_dkv_kernel", "K2-dkv flash_attention_bwd"),
-                       ("md_flash_bwd_dq_kernel", "K2-dq flash_attention_bwd"),
-                       ("md_depth_attn_kernel", "K3 depth_attention"),
-                       ("md_group_norm_kernel", "K4 group_norm")):
-        if key in name:
-            return group
-    if any(w in low for w in ("pytorch_flash", "fmha", "sdpa", "attention")):
-        return "SDPA (PyTorch)"
-    if any(w in low for w in ("conv", "fprop", "dgrad", "wgrad", "implicit")):
-        return "convolution (cuDNN)"
-    if any(w in low for w in ("gemm", "nvjet", "matmul", "cublas")):
-        return "matmul (cuBLAS)"
-    if "grid_sampler" in low:
-        return "grid_sample"
-    if "reduce" in low or "norm" in low:
-        return "reductions and norms"
-    if any(w in low for w in ("adam", "foreach", "multi_tensor_apply")):
-        return "optimizer (AdamW)"
-    return "elementwise and other"
-
-
-def profile_report(label: str, step, top: int = 15):
-    """Run step() once as a warm-up, once unprofiled and once under
-    torch.profiler; print the device's busy and idle share of the
-    unprofiled step and its kernel time by group and by name. Returns the
-    profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = device_events(prof)
-    if not kern:
-        raise AssertionError("torch.profiler recorded no device activity")
-    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-    span = (max(e.time_range.end for e in kern) - min(e.time_range.start for e in kern)) / 1e3
-    by_group, by_name = {}, {}
-    for e in kern:
-        us = e.time_range.elapsed_us() / 1e3
-        gname = kernel_group(e.name)
-        by_group[gname] = by_group.get(gname, 0.0) + us
-        n, c = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (n + us, c + 1)
-    # the profiler slows the host, not the device: idle share is taken
-    # against the unprofiled step
-    log(f"{label}: {plain_wall * 1e3:.2f} ms unprofiled, "
-        f"{wall * 1e3:.2f} ms profiled; device busy {busy:.2f} ms over a "
-        f"{span:.2f} ms device span; idle share of the unprofiled step "
-        f"{1 - busy / (plain_wall * 1e3):.3f}; {len(kern)} device activities")
-    for gname, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        log(f"  {ms:9.3f} ms {ms / busy:6.1%}  {gname}")
-    for name, (ms, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
-        log(f"  {ms:9.3f} ms x{c:<4d} {name[:110]}")
-    return prof
+        for ordered in (True, False):
+            run = lambda: real(feats, idx, mask, grid, ordered)
+            out[ordered] = device_ms(run)[0]
+            a, b = run(), run()
+            same[ordered] = all(torch.equal(x, y) for x, y in zip(a, b))
+    log(f"phase 5 mesh-voxel scatter of a serving step ({tuple(feats.shape)} vertex features "
+        f"into {tuple(grid)}): ordered {out[True]:.4f} ms device, bitwise equal twice "
+        f"{same[True]}; index_add_ {out[False]:.4f} ms, bitwise equal twice {same[False]}")
+    if not same[True]:
+        raise AssertionError("phase 5: the ordered scatter differs between two calls")
+    return out
 
 
 # gradient leaves compared between the kernels and the plain versions: K1's
@@ -1616,14 +1528,17 @@ def step_check(cfg, device, label: str):
 
 def timed_avatar(sampler, batch, kernels, want, label: str, warmup: bool = True):
     """Phase 4 (and 7): an optional warm-up avatar, then one timed avatar
-    with every launch counter set to 0 just before it. The launches must be
-    `want` and the images finite, not constant and of the config's shape.
-    Returns (seconds by CUDA events, peak bytes, launches)."""
+    with every launch counter set to 0 just before it, both from a generator
+    seeded with 1 (the same noise). The launches must be `want`, the images
+    finite, not constant and of the config's shape, and with a warm-up the
+    two avatars' latents and images equal to the bit (the serving path
+    scatters its mesh voxels in order). Returns (seconds by CUDA events,
+    peak bytes, launches)."""
     cfg = sampler.model.cfg
-    gen = torch.Generator(sampler.model.device).manual_seed(1)
+    seeded = lambda: torch.Generator(sampler.model.device).manual_seed(1)
     if warmup:
         t0 = time.perf_counter()
-        sampler.sample(batch, cfg.cfg_scale, generator=gen)
+        first = sampler.sample(batch, cfg.cfg_scale, generator=seeded())
         torch.cuda.synchronize()
         log(f"{label} warm-up avatar: {time.perf_counter() - t0:.2f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -1632,7 +1547,7 @@ def timed_avatar(sampler, batch, kernels, want, label: str, warmup: bool = True)
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     ev0.record()
-    images, latents = sampler.sample(batch, cfg.cfg_scale, generator=gen)
+    images, latents = sampler.sample(batch, cfg.cfg_scale, generator=seeded())
     ev1.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
@@ -1651,6 +1566,13 @@ def timed_avatar(sampler, batch, kernels, want, label: str, warmup: bool = True)
                              f"and of shape {shape}")
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches}, expected {want}")
+    if warmup:
+        same = torch.equal(first[0], images) and torch.equal(first[1], latents)
+        log(f"  the warm-up and the timed avatar (the same seed) bitwise equal: {same}")
+        if not same:
+            raise AssertionError(f"{label}: two avatars of one seed differ (images "
+                                 f"{rel_l2(images, first[0]):.3e}, latents "
+                                 f"{rel_l2(latents, first[1]):.3e})")
     return seconds, peak, launches
 
 
@@ -1835,11 +1757,13 @@ def int8_conv_ranges():
 def w8a8_drift(device):
     """Phase 8 (d): a bf16 and a W8A8 avatar of Config()'s seeded weights on
     the same noise draws (generator seed 7, 50 steps); the latent relative
-    L2 of every step and the PSNR of the final images as
-    tools/int8_trajectory.py computes them, gated; both avatars timed by
-    CUDA events; then one profiled W8A8 step (the int8 convs' device time)."""
+    L2 of every step and the PSNR of the final images by
+    `tools/int8_trajectory.py` (`trajectory`, `drift_report`), gated; both
+    avatars timed by CUDA events; then one profiled W8A8 step (the int8
+    convs' device time)."""
     from morphablediffusion_torch.ops import schedules
     from morphablediffusion_torch.sampling import SyncDDIMSampler
+    from morphablediffusion_torch.tools import int8_trajectory
     from morphablediffusion_torch.utils.config import Config
 
     cfg = Config()
@@ -1849,26 +1773,17 @@ def w8a8_drift(device):
     trajs, images, seconds = {}, {}, {}
     for tag, c in (("bf16", cfg), ("w8a8", cfg8)):
         model = serving_model(c, device, seed=0)
-        sampler = SyncDDIMSampler(model, sample_steps=W8A8_STEPS)
-        gen = torch.Generator(device).manual_seed(W8A8_SEED)
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        with torch.inference_mode():
-            prep = model.prepare_inference(batch)
-            _, traj = sampler.denoise_latents(batch, prep, cfg.model.cfg_scale, generator=gen,
-                                              collect_trajectory=True)
-            images[tag] = model.decode_views(traj[-1]).clamp(-1, 1).double().cpu()
-        ev1.record()
-        torch.cuda.synchronize()
-        seconds[tag] = ev0.elapsed_time(ev1) / 1e3
-        trajs[tag] = torch.stack(traj).double().cpu()
+        trajs[tag], images[tag], seconds[tag] = int8_trajectory.trajectory(
+            model, batch, W8A8_SEED, W8A8_STEPS)
         if tag == "w8a8":
+            sampler = SyncDDIMSampler(model, sample_steps=W8A8_STEPS)
             m = model.cfg
             g = torch.Generator(device).manual_seed(5)
             shape = (1, m.view_num, m.latent_size, m.latent_size, 4)
             x, noise = (torch.randn(shape, generator=g, device=device) for _ in range(2))
             t = torch.full((1,), int(sampler.timesteps[25]), dtype=torch.int64, device=device)
             with torch.inference_mode(), int8_conv_ranges():
+                prep = model.prepare_inference(batch)
                 prof = profile_report("phase 8 (d) one profiled W8A8 denoising step",
                                       lambda: schedules.ddim_step(
                                           x, model.predict_eps_cfg(
@@ -1883,14 +1798,13 @@ def w8a8_drift(device):
             log(f"phase 8 (d) int8 convs in one W8A8 step: {len(marks)} calls, {int8_ms:.3f} ms "
                 f"of device time (quantize, im2col, _int_mm, dequantize), of which _int_mm "
                 f"{mm_ms:.3f} ms")
-        del model, sampler, prep
+            del sampler, prep
+        del model
         torch.cuda.empty_cache()
-    a, b = trajs["bf16"], trajs["w8a8"]
-    drift = ((a - b).flatten(1).pow(2).mean(1).sqrt() / a.flatten(1).pow(2).mean(1).sqrt())
-    psnr = float(10 * torch.log10(4.0 / (images["bf16"] - images["w8a8"]).pow(2).mean()))
-    final = float(drift[-1])
+    report = int8_trajectory.drift_report(trajs, images, W8A8_STEPS, W8A8_SEED)
+    final, psnr = report["final_rel_l2"], report["final_image_psnr_bf16_vs_w8a8"]
     log(f"phase 8 (d) W8A8 drift, Config() seeded weights, seed {W8A8_SEED}, {W8A8_STEPS} "
-        f"steps: latent relative L2 per step {[round(float(d), 5) for d in drift]}; final "
+        f"steps: latent relative L2 per step {report['per_step_rel_l2']}; final "
         f"{final:.5f} (gate {W8A8_MAX_REL_L2}; the JAX study 0.02525), final-image PSNR "
         f"{psnr:.2f} dB (gate {W8A8_MIN_PSNR}; the JAX study 43.03); avatars (denoise and "
         f"decode, CUDA events): bf16 {seconds['bf16']:.3f} s, W8A8 {seconds['w8a8']:.3f} s")
@@ -2190,26 +2104,28 @@ def synth_phase(root: Path, vae_file: Path, tmp: Path, device, kernels, checked,
     return census
 
 
-def training_complete(device, kernels, checked, card: str):
+def training_complete(device, kernels, checked, card: str, keep: Path):
     """Phase 9: the from-scratch recipe (a - c, with e: phase 2 at its new
     shapes) and full-width training under THuman, the fine conditioner and
-    use_spatial_volume (d). Returns the GroupNorm censuses for K4's check."""
+    use_spatial_volume (d). Its tree, run and config stay under
+    `keep`/phase9 for phase 13 (f). Returns the GroupNorm censuses for K4's
+    check."""
     t_phase = time.perf_counter()
     censuses = []
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        root = tmp / "synth"
-        synthetic_tree(root)
-        t0 = time.perf_counter()
-        censuses.append(("train_vae", vae_phase(root / "data", tmp / "vae" / "vae.pt", device,
-                                                kernels, card)))
-        log(f"phase 9b: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        censuses.append(("synth_scratch", synth_phase(root, tmp / "vae" / "vae.pt", tmp, device,
-                                                      kernels, checked, card)))
-        log(f"phase 9c, e: {time.perf_counter() - t0:.1f} s")
-        torch.cuda.empty_cache()
+    tmp = keep / "phase9"
+    tmp.mkdir()
+    root = tmp / "synth"
+    synthetic_tree(root)
+    t0 = time.perf_counter()
+    censuses.append(("train_vae", vae_phase(root / "data", tmp / "vae" / "vae.pt", device,
+                                            kernels, card)))
+    log(f"phase 9b: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    censuses.append(("synth_scratch", synth_phase(root, tmp / "vae" / "vae.pt", tmp, device,
+                                                  kernels, checked, card)))
+    log(f"phase 9c, e: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     for label, cfg in other_configs().items():
         t0 = time.perf_counter()
@@ -2542,7 +2458,8 @@ def check_metrics(label, result, perfect: bool):
 def eval_phase(device, kernels, checked, keep: Path):
     """Phase 10: the eval harness ((a) - (h) in the module docstring).
     Copies the landmark net of (c) and two painted views (subject 001,
-    expressions 01 and 02, view 0) into `keep` for phase 11. Returns the
+    expressions 01 and 02, view 0) into `keep` for phase 11, and moves the
+    tree and its stage-1 views there for phase 13 (e). Returns the
     GroupNorm censuses for K4's check."""
     from morphablediffusion_torch.apps import calibrate_reid, eval_2d, eval_keypoints
 
@@ -2618,6 +2535,8 @@ def eval_phase(device, kernels, checked, keep: Path):
         for exp, name in (("01", "photo_in.png"), ("02", "photo_exp.png")):
             shutil.copy(f["data"] / "001" / exp / "view_00000" / "rgba_colorcalib.png",
                         keep / name)
+        shutil.move(str(f["data"]), str(keep / "eval_data"))  # phase 13 (e)
+        shutil.copy(views, keep / "eval_views.json")
     log(f"phase 10 (h) seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; the "
         f"avatar at B=2 {[round(c['seconds'], 3) for c in calls]} s (CUDA events), peak "
         f"{max(c['peak'] for c in calls) / 2**30:.2f} GiB; phase 10 the eval harness: "
@@ -3086,6 +3005,235 @@ def fitting_phase(device, kernels, keep: Path):
     return [("fit_face --kpt_weights", census)]
 
 
+# phase 13: the JAX package's weight files and the repository's quality and
+# sizing tools on the port (morphablediffusion_torch/tools/), before K4's
+# check so that their GroupNorm shapes are held there
+SHIPPED_NET = ROOT / "artifacts/landmark_net_synth.msgpack"
+PCK_ARTIFACT = ROOT / "artifacts/pck_heldout.json"
+# pck_heldout.json's recipe: 40 subjects x 2 expressions x 16 views at 128^2
+# with the landmarks painted; subjects 038 - 040 held out (96 views)
+PCK_RECIPE = ("--subjects", "40", "--expressions", "2", "--views", "16", "--image_size", "128")
+PCK_HELD_OUT = ("038", "039", "040")
+# the card against the artifact: the JAX tool on the CPU reproduces it from
+# the recipe (PCK@0.2 0.7194, 3.301 px against 0.7198, 3.3)
+PCK_MAX_DIFF, PX_MAX_DIFF = 0.01, 0.1
+FLAME_EVAL_TRIALS, FLAME_EVAL_NOISE = 4, ("0", "0.5")
+# depth cut for the script's time limit: (e)'s matting samples (the tool's
+# 12), (f)'s sampler steps (the script's 50)
+MATTING_SAMPLES, SCRATCH_EVAL_STEPS = 6, 10
+SCRATCH_EVAL_SCRIPT = ROOT / "morphablediffusion_torch/tools/eval_synth_scratch.sh"
+
+
+def landmark_net_phase(tmp: Path, kernels):
+    """(a) the shipped landmark net (the JAX package's flax-msgpack file)
+    read without flax, the held-out tree of pck_heldout.json regenerated
+    from its recipe by the port's tools, and eval_landmark_net on the card,
+    plain and shifted: K4 once per GroupNorm call and nothing else, the
+    plain PCK@0.2 and mean pixel error beside the artifact's. Returns the
+    GroupNorm censuses."""
+    from morphablediffusion_torch.tools import (eval_landmark_net, make_synthetic_facescape,
+                                                make_synthetic_landmarks)
+    from morphablediffusion_torch.utils import flax_msgpack
+
+    t0 = time.perf_counter()
+    tree = flax_msgpack.restore(SHIPPED_NET)
+    flat = flax_msgpack.flatten(tree["params"]["params"])
+    n = sum(v.size for v in flat.values())
+    log(f"phase 13 (a) {SHIPPED_NET.name}: {SHIPPED_NET.stat().st_size} bytes, {len(flat)} "
+        f"leaves, {n} parameters, num_keypoints {tree['num_keypoints']} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if (tree["num_keypoints"], len(flat), n) != (68, 66, 3_422_980):
+        raise AssertionError("phase 13 (a): the shipped landmark net")
+    t0 = time.perf_counter()
+    tmp.mkdir(parents=True, exist_ok=True)
+    marks = tmp / "landmarks.json"
+    run_cli(make_synthetic_landmarks.main, ["--out", str(marks)])
+    run_cli(make_synthetic_facescape.main, ["--out", str(tmp), *PCK_RECIPE,
+                                            "--mark_landmarks", str(marks)])
+    held = tmp / "test_data"
+    held.mkdir()
+    for s in PCK_HELD_OUT:
+        shutil.move(str(tmp / "data" / s), str(held / s))
+    log(f"phase 13 (a) the held-out tree from pck_heldout.json's recipe: "
+        f"{len(list((tmp / 'data').rglob('*.png')))} training and "
+        f"{len(list(held.rglob('*.png')))} held-out views in {time.perf_counter() - t0:.1f} s")
+    art = json.loads(PCK_ARTIFACT.read_text())
+    results, censuses = {}, []
+    for cond, extra in (("plain", []), ("shifted", ["--shifted"])):
+        results[cond], census, _ = counted_cli(
+            f"phase 13 (a) eval_landmark_net {cond}", eval_landmark_net.main,
+            ["--weights", str(SHIPPED_NET), "--image_dir", str(held), "--landmarks", str(marks),
+             "--mesh", str(tmp / "flame/{subject}/{exp}/mesh.obj"), "--image_size", "128",
+             "--out", str(tmp / f"pck_{cond}.json"), *extra], kernels)
+        censuses.append((f"eval_landmark_net {cond}", census))
+    p, s = results["plain"], results["shifted"]
+    log(f"phase 13 (a) the shipped net on the card, {p['n_views']} views: plain PCK@0.2 "
+        f"{p['pck_0.2']}, PCK@0.5 {p['pck_0.5']}, mean {p['mean_px']} px, median "
+        f"{p['median_px']} px (pck_heldout.json: {art['pck_0.2']}, {art['pck_0.5']}, "
+        f"{art['mean_pixel_error_128px']} px, {art['median_pixel_error_128px']} px); shifted "
+        f"PCK@0.2 {s['pck_0.2']}, PCK@0.5 {s['pck_0.5']}, mean {s['mean_px']} px")
+    if (p["n_views"] != art["n_views"] or abs(p["pck_0.2"] - art["pck_0.2"]) > PCK_MAX_DIFF
+            or abs(p["mean_px"] - art["mean_pixel_error_128px"]) > PX_MAX_DIFF):
+        raise AssertionError(f"phase 13 (a): {p} against {art}")
+    return censuses
+
+
+def flame_eval_phase(tmp: Path):
+    """(b) eval_flame_fit on the port's synthetic FLAME assets at FLAME2020's
+    widths, 4 trials at 0 and 0.5 px of landmark noise and its retarget
+    trials, every number finite."""
+    from morphablediffusion_torch.tools import eval_flame_fit, make_synthetic_flame
+
+    run_cli(make_synthetic_flame.main, ["--out", str(tmp / "flame"), "--vertices",
+                                        str(FLAME_VERTICES), "--faces", str(FLAME_FACES)])
+    res, _, seconds = run_main(eval_flame_fit.main, [
+        "--assets", str(tmp / "flame"), "--trials", str(FLAME_EVAL_TRIALS),
+        "--noise_px", *FLAME_EVAL_NOISE, "--out", str(tmp / "flame_fit_eval.json")])
+    keys = ("px_err", "vertex_rms", "vertex_rms_rel", "shape_cos", "exp_cos", "fit_seconds")
+    for noise, agg in res["per_noise"].items():
+        log(f"phase 13 (b) eval_flame_fit, {noise} px noise, {len(agg['trials'])} trials "
+            f"(means): " + ", ".join(f"{k} {agg[k]:.5g}" for k in keys))
+    log(f"phase 13 (b) retarget: " + "; ".join(
+        ", ".join(f"{k} {v:.5g}" for k, v in r.items()) for r in res["retarget"])
+        + f"; {seconds:.1f} s")
+    nums = [v for agg in res["per_noise"].values() for r in agg["trials"] for v in r.values()]
+    nums += [v for r in res["retarget"] for v in r.values()]
+    if len(res["per_noise"]) != len(FLAME_EVAL_NOISE) or not all(map(math.isfinite, nums)):
+        raise AssertionError(f"phase 13 (b): {res}")
+
+
+def int8_phase(tmp: Path):
+    """(c) make_flagship_ckpt (its fp32 file) and int8_trajectory on it at
+    full width: bf16 against W8A8 over 50 steps of the same noise, gated as
+    phase 8 (d)."""
+    from morphablediffusion_torch.tools import int8_trajectory, make_flagship_ckpt
+
+    ckpt = tmp / "flagship.ckpt"
+    info, _, s_ckpt = run_main(make_flagship_ckpt.main, ["--out", str(ckpt)])
+    torch.cuda.empty_cache()
+    size = ckpt.stat().st_size
+    rep, _, s_traj = run_main(int8_trajectory.main, ["--ckpt", str(ckpt), "--out",
+                                                     str(tmp / "int8_trajectory.json")])
+    ckpt.unlink()
+    torch.cuda.empty_cache()
+    final, psnr = rep["final_rel_l2"], rep["final_image_psnr_bf16_vs_w8a8"]
+    log(f"phase 13 (c) make_flagship_ckpt: {info['tensors']} tensors, {info['params_m']} M "
+        f"parameters, {size / 2**30:.2f} GiB fp32 in {s_ckpt:.1f} s; int8_trajectory on it: "
+        f"final latent relative L2 {final:.5f} (gate {W8A8_MAX_REL_L2}), PSNR {psnr:.2f} dB "
+        f"(gate {W8A8_MIN_PSNR}), max abs {rep['final_image_max_abs']:.4f}; {s_traj:.1f} s")
+    if not (final <= W8A8_MAX_REL_L2 and psnr >= W8A8_MIN_PSNR):
+        raise AssertionError(f"phase 13 (c): W8A8 drift {final:.5f} or PSNR {psnr:.2f} dB")
+
+
+def memory_phase():
+    """(d) memory_report at batch 8 and 16 views: the peaks of one train
+    step and one sampling step on the card, and the state's bytes by group
+    (AdamW's moments twice the trainable fp32 parameters)."""
+    from morphablediffusion_torch.tools import memory_report
+
+    rep, _, seconds = run_main(memory_report.main, ["--batch", str(TRAIN_BATCH), "--views", "16"])
+    tr, sa = rep["train"], rep["sample"]
+    gib = lambda n: f"{n / 2**30:.2f} GiB"
+    log(f"phase 13 (d) memory_report: train step (B={tr['batch']}, 16 views, remat "
+        f"{tr['remat']}) peak {gib(tr['peak_bytes'])}, parameters "
+        f"{ {k: gib(v) for k, v in tr['parameters'].items()} }, gradients "
+        f"{ {k: gib(v) for k, v in tr['gradients'].items()} }, AdamW moments "
+        f"{ {k: gib(v) for k, v in tr['adamw_moments'].items()} }; sampling step peak "
+        f"{gib(sa['peak_bytes'])} ({gib(sa['parameter_bytes'])} of parameters); {seconds:.1f} s")
+    trainable = sum(v for k, v in tr["parameters"].items() if k != "frozen")
+    if (sum(tr["adamw_moments"].values()) != 2 * trainable or not tr["peak_bytes"] > 0
+            or not sa["peak_bytes"] > 0):
+        raise AssertionError(f"phase 13 (d): {rep}")
+    torch.cuda.empty_cache()
+
+
+def matting_anchor_phase(keep: Path, tmp: Path):
+    """(e) eval_matting and eval_anchors on phase 10's tree (256^2) and its
+    stage-1 views, beside the JAX package's artifacts."""
+    from morphablediffusion_torch.tools import eval_anchors, eval_matting
+
+    data = keep / "eval_data"
+    mat, _, s_mat = run_main(eval_matting.main, ["--data_dir", str(data), "--samples",
+                                                 str(MATTING_SAMPLES), "--out",
+                                                 str(tmp / "matting_eval.json")])
+    art = json.loads((ROOT / "artifacts/matting_eval.json").read_text())["summary"]
+    log("phase 13 (e) eval_matting: " + "; ".join(
+        f"{bg} IoU {s['iou_mean']:.3f} (min {s['iou_min']:.3f}) MAE {s['mae_mean']:.3f} over "
+        f"{s['n']} (JAX artifact {art[bg]['iou_mean']:.3f}, {art[bg]['mae_mean']:.3f})"
+        for bg, s in mat["summary"].items()) + f"; {s_mat:.1f} s")
+    # eval_select_views lists every expression 01 - 20 of a subject, an empty
+    # entry where the tree has none; the anchors (as the JAX tool) take
+    # entries that name their views
+    meta = json.loads((keep / "eval_views.json").read_text())
+    views = tmp / "anchor_views.json"
+    views.write_text(json.dumps({s: {e: m for e, m in d.items() if m}
+                                 for s, d in meta.items()}))
+    anc, _, s_anc = run_main(eval_anchors.main, [
+        "--data_dir", str(data), "--views_json", str(views),
+        "--image_size", str(EVAL_SIZE), "--out", str(tmp / "anchors.json")])
+    log(f"phase 13 (e) eval_anchors: {anc['pairs_scored']} of {anc['pairs_total']} pairs; "
+        f"copy-input SSIM {anc['copy_input']['ssim']:.4f} PSNR {anc['copy_input']['psnr']:.2f}; "
+        f"noise SSIM {anc['noise']['ssim']:.4f} PSNR {anc['noise']['psnr']:.2f}; {s_anc:.1f} s")
+    ious = [r["iou"] for rows in mat["per_image"].values() for r in rows]
+    if (set(mat["summary"]) != {"uniform", "gradient", "clutter"}
+            or not all(0 <= v <= 1 for v in ious) or not anc["pairs_scored"] > 0
+            or not all(math.isfinite(anc[k][m]) for k in ("copy_input", "noise")
+                       for m in ("ssim", "psnr"))):
+        raise AssertionError(f"phase 13 (e): {mat['summary']}, {anc}")
+
+
+def scratch_eval_phase(keep: Path):
+    """(f) the port's eval_synth_scratch.sh on phase 9's run: stages 1 - 4
+    (views of the held-out subject, eval_generate nvs and nes,
+    eval_keypoints with the shipped net, eval_2d's metrics), each CLI a
+    process on the card; eval_2d's metrics of both modes finite."""
+    run9 = keep / "phase9"
+    out = run9 / "eval"
+    env = dict(os.environ, CKPT=str(run9 / "runs" / "synth" / "ckpt"),
+               CFG=str(run9 / "synth_scratch.yaml"), SUBJECTS=f"{SYNTH_SUBJECTS:03d}",
+               STEPS=str(SCRATCH_EVAL_STEPS), IMAGE_SIZE=str(SYNTH_SIZE), PYTHON=sys.executable)
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", str(SCRATCH_EVAL_SCRIPT), str(run9 / "synth"), str(out)],
+                       env=env, capture_output=True, text=True, timeout=PAR_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if r.returncode:
+        log(r.stdout[-4000:])
+        log(r.stderr[-4000:])
+        raise AssertionError(f"phase 13 (f): eval_synth_scratch.sh exited {r.returncode}")
+    metrics = {m: json.loads((out / f"metrics_{m}.json").read_text().strip().splitlines()[-1])
+               for m in ("nvs", "nes")}
+    log(f"phase 13 (f) eval_synth_scratch.sh on phase 9's run ({SCRATCH_EVAL_STEPS} sampler "
+        f"steps): {seconds:.1f} s; " + "; ".join(
+            f"{m} " + ", ".join(f"{k} {v}" for k, v in res.items() if not isinstance(v, dict))
+            for m, res in metrics.items()))
+    for m, res in metrics.items():
+        for k in ("ssim", "psnr", "fid", "pck@0.2"):
+            v = res.get(k)
+            if not isinstance(v, (int, float)) or not math.isfinite(v):
+                raise AssertionError(f"phase 13 (f): {m} {k} = {v!r} in {res}")
+
+
+def tools_phase(device, kernels, keep: Path):
+    """Phase 13 ((a) - (f) in the module docstring), one part at a time.
+    Returns the GroupNorm censuses for K4's check."""
+    t_phase, seconds, censuses = time.perf_counter(), {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        tmp = Path(tmp)
+        parts = (("(a) landmark net", lambda: landmark_net_phase(tmp / "kp", kernels)),
+                 ("(b) eval_flame_fit", lambda: flame_eval_phase(tmp)),
+                 ("(c) int8_trajectory", lambda: int8_phase(tmp)),
+                 ("(d) memory_report", memory_phase),
+                 ("(e) matting, anchors", lambda: matting_anchor_phase(keep, tmp)),
+                 ("(f) eval_synth_scratch.sh", lambda: scratch_eval_phase(keep)))
+        for label, part in parts:
+            t0 = time.perf_counter()
+            censuses += part() or []
+            seconds[label] = time.perf_counter() - t0
+    log(f"phase 13 seconds: {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}; phase 13 "
+        f"the weight files and the tools: {time.perf_counter() - t_phase:.1f} s")
+    return censuses
+
+
 # phase 12: more than one rank. On a machine with one card the ranks of (b)
 # and (c) share it under gloo (collectives staged through the
 # host); (d) runs the NCCL collectives on a one-rank group, and NCCL across
@@ -3507,8 +3655,7 @@ def train_cli_ranks(tmp: Path):
 
 def nccl_one_rank(tmp: Path, device):
     """(d) a one-rank NCCL group: (b)'s CFG step and (c)'s train step through
-    the NCCL collectives against world 1 (no group). The steps run under
-    torch's deterministic algorithms; the train step's gradients are
+    the NCCL collectives against world 1 (no group). The train step's gradients are
     computed once and given to both optimizers (the backward has no
     deterministic mode for every op); eps, loss, grad norm and the trainable
     parameters after the step within NCCL_MAX_REL_L2."""
@@ -3523,17 +3670,12 @@ def nccl_one_rank(tmp: Path, device):
         reset_stats()
         model = serving_model(cfg, device, seed=0)
         batch = flagship_batch(cfg, device, seed=0)
-        # both steps under torch's deterministic algorithms: the mesh-voxel
-        # scatter's index_add_ adds by atomics on the card otherwise, and two
-        # calls of the same step then differ by more than the collectives
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            with torch.inference_mode():
-                prep = model.prepare_inference(batch)
-                eps1 = one_step(model, batch, prep=prep)
-                eps_n = one_step(model, batch, prep=prep, mesh=mesh)
-        finally:
-            torch.use_deterministic_algorithms(False)
+        # the serving step scatters its mesh voxels in order: two calls of
+        # it differ by the collectives alone
+        with torch.inference_mode():
+            prep = model.prepare_inference(batch)
+            eps1 = one_step(model, batch, prep=prep)
+            eps_n = one_step(model, batch, prep=prep, mesh=mesh)
         step_err = rel_l2(eps_n, eps1)
         del model, prep
         torch.cuda.empty_cache()
@@ -3695,8 +3837,10 @@ def main() -> int:
             or want[gn.KERNEL.name] != 5902):
         raise AssertionError(f"expected launches {want}")
 
-    # 5. where one denoising step's device time goes
+    # 5. where one denoising step's device time goes, and the ordered
+    # scatter's share of it
     profile_step(sampler, batch)
+    scatter_cost(model, batch)
     del sampler, model
     torch.cuda.empty_cache()
 
@@ -3724,13 +3868,15 @@ def main() -> int:
     # 8. the generate_face CLI
     censuses.append(("cli_fine", cli_phase(device, kernels, k1_shapes, k2_shape, gn_avatar)))
 
-    # 9. training complete
-    censuses += training_complete(device, kernels, checked, card)
-
-    # 10. the eval harness, and 11. FLAME fitting (phase 10's landmark net)
+    # 9. training complete, 10. the eval harness, 11. FLAME fitting (phase
+    # 10's landmark net) and 13. the weight files and the tools (phase 9's
+    # run, phase 10's tree)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_keep_") as keep:
-        censuses += eval_phase(device, kernels, checked, Path(keep))
-        censuses += fitting_phase(device, kernels, Path(keep))
+        keep = Path(keep)
+        censuses += training_complete(device, kernels, checked, card, keep)
+        censuses += eval_phase(device, kernels, checked, keep)
+        censuses += fitting_phase(device, kernels, keep)
+        censuses += tools_phase(device, kernels, keep)
 
     # K4 (phase 2) at every GroupNorm call the censuses found
     t0 = time.perf_counter()
@@ -3742,7 +3888,7 @@ def main() -> int:
     # 12. more than one rank
     parallel_phase(device, kernels)
 
-    # 13. results
+    # 14. results
     train_run = f"training: {TRAIN_STEPS} steps of B={TRAIN_BATCH} ({train_ms:.2f} ms each)"
     per_step = {n: c // TRAIN_STEPS for n, c in train_launches.items()}
     serving = lambda name: (launches[name], "serving", "avatar")

@@ -21,7 +21,8 @@ different expression; different = two subjects, same view id): the
 deployed metric's geometry, since eval_2d compares each generated view
 against ground truth at the same camera. With ``--embedder landmark`` the
 descriptor is the spatially-pooled penultimate feature map of a trained
-landmark net (``--weights``, the port's `.pt`): the output of its last head
+landmark net (``--weights``, the port's `.pt` or the JAX package's
+`.msgpack`, such as `artifacts/landmark_net_synth.msgpack`): the output of its last head
 GroupNorm before SiLU (`LandmarkNet.trunk`), a weights-free fallback that
 demonstrates the calibration pipeline end to end on synthetic data.
 
@@ -111,7 +112,8 @@ def main(argv=None):
                         choices=["irse", "landmark"])
     parser.add_argument("--reid_weights", type=str, default="")
     parser.add_argument("--weights", type=str, default="",
-                        help="landmark-net weights for --embedder landmark")
+                        help="landmark-net weights for --embedder landmark "
+                             "(.pt, or the JAX package's .msgpack)")
     parser.add_argument("--pairs", type=int, default=200)
     parser.add_argument("--pairing", type=str, default="any_view",
                         choices=["any_view", "same_view"])

@@ -10,7 +10,8 @@ All five reference metrics are computed in-repo:
   * SSIM / PSNR / PCK: numpy on the host (`eval/metrics.py`).
   * FID: Frechet distance over CLIP-tower features of the model's own frozen
     CLIP encoder (`--ckpt`, a reference .ckpt/.pt/.pth read by the port's
-    importer; the JAX package's Orbax directories are not read). The
+    importer, or a checkpoint directory of the port's train CLI; the JAX
+    package's Orbax directories are not read). The
     reference uses InceptionV3 features (torchmetrics); the default
     --fid_backend auto picks that backend whenever torchmetrics imports,
     else CLIP-FID, whose absolute values are not comparable across feature
@@ -64,22 +65,21 @@ def _load_gt(view_dir, size=256):
 def _load_clip_encoder(ckpt_path: str, cfg_path: str, device):
     """The CLIP tower of a reference checkpoint, whole-model or the tower
     alone (its `clip_image_encoder.model.visual.*` keys, through the port's
-    importer), fp32 on `device`; the config (or `Config()`) gives its
+    importer), or of a checkpoint directory of the port's train CLI (its
+    params export), fp32 on `device`; the config (or `Config()`) gives its
     dimensions."""
+    import torch
     from torch import nn
 
     from morphablediffusion_torch.apps.generate_face import REFERENCE_SUFFIXES
     from morphablediffusion_torch.models.clip import CLIPImageEncoder
+    from morphablediffusion_torch.utils.checkpoint import CheckpointManager
     from morphablediffusion_torch.utils.config import Config, load_config
     from morphablediffusion_torch.utils.torch_import import (
         import_state_dict,
         load_torch_state_dict,
     )
 
-    if not str(ckpt_path).endswith(REFERENCE_SUFFIXES):
-        raise SystemExit(f"--ckpt {ckpt_path}: the port reads the CLIP tower from a "
-                         "reference .ckpt/.pt/.pth; a JAX Orbax directory cannot be "
-                         "read without JAX")
     cfg = load_config(cfg_path) if cfg_path else Config()
     c = cfg.model.clip
     holder = nn.Module()  # the importer's paths start at the model's root
@@ -87,6 +87,18 @@ def _load_clip_encoder(ckpt_path: str, cfg_path: str, device):
         width=c.width, layers=c.layers, num_heads=c.num_heads, patch_size=c.patch_size,
         output_dim=c.output_dim)
     holder.to(device)
+    if not str(ckpt_path).endswith(REFERENCE_SUFFIXES):
+        params = CheckpointManager(ckpt_path).params
+        if not params.is_file():
+            raise SystemExit(f"--ckpt {ckpt_path}: neither a reference .ckpt/.pt/.pth nor "
+                             "a checkpoint directory of the port's train CLI (a JAX Orbax "
+                             "directory cannot be read without JAX)")
+        prefix = "clip_image_encoder."
+        sd = torch.load(params, map_location="cpu", weights_only=True)
+        holder.clip_image_encoder.load_state_dict(
+            {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}, strict=True)
+        print(f"clip tower: the params export of {ckpt_path}")
+        return holder.clip_image_encoder.eval()
     # only the tower's keys: the importer pads the UNet's input conv when it
     # finds that key, which a model without a UNet cannot take (the JAX app
     # raises KeyError: 'unet' on a whole-model checkpoint)
@@ -133,8 +145,9 @@ def main(argv=None):
     parser.add_argument("--gt_kpts", type=str, default="")
     parser.add_argument("--image_size", type=int, default=256)
     parser.add_argument("--ckpt", type=str, default="",
-                        help="reference model checkpoint (.ckpt/.pt/.pth) "
-                             "providing the CLIP tower for FID features")
+                        help="reference model checkpoint (.ckpt/.pt/.pth) or the "
+                             "port's train-CLI checkpoint dir, providing the CLIP "
+                             "tower for FID features")
     parser.add_argument("--cfg", type=str, default="",
                         help="model config yaml (CLIP dims for --ckpt)")
     parser.add_argument("--fid_backend", type=str, default="auto",

@@ -7,7 +7,9 @@ top-down) and writes a kpts JSON per image set. The same artifact contract
 with three backends:
 
   --backend native: the in-repo landmark detector (`eval/keypoint_net.py`,
-      trained with `apps/train_keypoints.py`) over every image in
+      trained with `apps/train_keypoints.py`, a `.pt`; or the JAX package's
+      `.msgpack`, such as the shipped `artifacts/landmark_net_synth.msgpack`
+      at --image_size 128) over every image in
       --image_dir, on the CUDA card (it raises without one unless `--device
       cpu` is given).
   --backend command: an arbitrary user command per image directory that
@@ -109,7 +111,8 @@ def main(argv=None):
     parser.add_argument("--backend", type=str, default="native",
                         choices=["native", "command", "precomputed"])
     parser.add_argument("--weights", type=str, default="",
-                        help="landmark net weights (train_keypoints --out)")
+                        help="landmark net weights (train_keypoints --out, "
+                             "or the JAX package's .msgpack)")
     parser.add_argument("--image_size", type=int, default=256)
     parser.add_argument("--command", type=str, default="",
                         help="shell command; {image_dir} and {output} are "

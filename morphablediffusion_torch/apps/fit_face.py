@@ -11,8 +11,9 @@ CLI produces the same file from the same two photos:
   landmarks   - a precomputed .npy/.json (--input_landmarks/--exp_landmarks),
                 the optional `face_alignment` package if it imports, or the
                 port's 68-landmark net (eval/keypoint_net.py) from its own
-                `.pt` file (--kpt_weights; the JAX package's flax-msgpack
-                files are not read).
+                `.pt` file or the JAX package's flax-msgpack one
+                (--kpt_weights; the shipped net is
+                `artifacts/landmark_net_synth.msgpack`, trained at 128^2).
   fitting     - fitting/fit.py's staged Levenberg-Marquardt fit (identity
                 from the input photo, expression/pose from the expression
                 photo), on the device.
@@ -106,8 +107,9 @@ def main(argv=None):
     parser.add_argument("--out", type=str, required=True,
                         help="output fitted mesh .ply")
     parser.add_argument("--kpt_weights", type=str, default="",
-                        help="the port's landmark-net weights (.pt, "
-                             "apps/train_keypoints.py)")
+                        help="landmark-net weights: the port's .pt "
+                             "(apps/train_keypoints.py) or the JAX package's "
+                             ".msgpack (artifacts/landmark_net_synth.msgpack)")
     parser.add_argument("--kpt_size", type=int, default=128,
                         help="inference resolution for the native landmark "
                              "net: use the resolution it was trained at")

@@ -131,8 +131,9 @@ def main(argv=None):
     parser.add_argument("--finetune_from", type=str, default="",
                         help="reference .ckpt/.pt/.pth to start from (ignored on --resume)")
     parser.add_argument("--vae_from", type=str, default="",
-                        help="a train_vae file grafted into the frozen first_stage before "
-                             "step 0 (ignored on --resume)")
+                        help="a train_vae file (the port's .pt or the JAX CLI's .msgpack) "
+                             "grafted into the frozen first_stage before step 0 (ignored "
+                             "on --resume)")
     parser.add_argument("--rss_restart_gb", type=float, default=0.0,
                         help="restart with --resume (os.execv) when the host RSS exceeds this "
                              "many GiB at a rolling-checkpoint step; 0 = off")

@@ -19,8 +19,12 @@ correction is folded into the parameters (`fold_latent_scale`), so that
 
 The output is the port's own format: `torch.save` of {"state_dict", "meta"}
 with the JAX CLI's meta keys (ch, ch_mult, num_res_blocks, image_size,
-latent_std_raw, fold_scale). The JAX CLI's `.msgpack` files are not read:
-that would need flax.
+latent_std_raw, fold_scale). `load_vae` (so `train.py --vae_from`) also
+reads the JAX CLI's `.msgpack` ({"params": {"params": tree}, "meta"})
+without flax (`utils/flax_msgpack.py`). Both CLIs fold the latent scale
+the same way, into the parameters before the file is written, so a JAX
+file is grafted as it is, with no second fold; its meta carries across
+unchanged (`fold_scale` records the fold, it is not applied again).
 
     python -m morphablediffusion_torch.apps.train_vae --data_dir /tmp/synth/data \
         --image_size 128 --out runs/synth_vae/vae.pt --steps 3000 [--device cpu]
@@ -89,10 +93,19 @@ def save_vae(path: str, state_dict: dict, meta: dict) -> None:
 
 
 def load_vae(path: str):
-    """-> (AutoencoderKL state_dict on the CPU, meta dict). Graft it into a
-    diffusion model's `first_stage` (`apps.train --vae_from`)."""
-    blob = torch.load(path, map_location="cpu", weights_only=True)
-    return blob["state_dict"], blob["meta"]
+    """-> (AutoencoderKL state_dict on the CPU, meta dict) of the port's
+    file (`save_vae`) or of the JAX CLI's `.msgpack`, told apart by content
+    (a torch zip starts `PK\\x03\\x04`). Graft it into a diffusion model's
+    `first_stage` (`apps.train --vae_from`)."""
+    from morphablediffusion_torch.utils import flax_msgpack
+    from morphablediffusion_torch.weights import from_jax_params
+
+    if flax_msgpack.is_torch_file(path):
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+        return blob["state_dict"], blob["meta"]
+    blob = flax_msgpack.restore(path)
+    state = from_jax_params(flax_msgpack.flatten(blob["params"]["params"]), device="cpu")
+    return state, blob["meta"]
 
 
 def vae_loss(vae, x, eps, kl_weight: float):

@@ -19,8 +19,11 @@ across by `from_jax_params`. The second head norm (`GroupNorm_1`) applies
 no activation itself: its output, before SiLU, is the appearance feature
 that `apps/calibrate_reid.py --embedder landmark` pools (`LandmarkNet.trunk`).
 
-Weights are the port's own `.pt` ({"num_keypoints", "state_dict"}); the JAX
-package's flax-msgpack files are not read (that needs flax).
+Weights are the port's own `.pt` ({"num_keypoints", "state_dict"}) or the
+JAX package's flax-msgpack file ({"num_keypoints", "params": {"params":
+tree}}, such as the shipped `artifacts/landmark_net_synth.msgpack`), read
+without flax by `utils/flax_msgpack.py` and carried over by
+`from_jax_params`; `load_params` tells them apart by content.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch import nn
 
 from morphablediffusion_torch import weights
 from morphablediffusion_torch.models.layers import GroupNorm
+from morphablediffusion_torch.utils import flax_msgpack
 
 GN_GROUPS, GN_EPS = 8, 1e-6  # flax nn.GroupNorm's defaults
 
@@ -156,10 +160,18 @@ def save_params(path, net: LandmarkNet):
 
 
 def load_params(path, device) -> LandmarkNet:
-    """A LandmarkNet from the port's `.pt` (`save_params`), on `device`."""
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    net = LandmarkNet(state["num_keypoints"])
-    net.load_state_dict(state["state_dict"], strict=True)
+    """A LandmarkNet on `device` from the port's `.pt` (`save_params`) or
+    the JAX package's flax-msgpack file, told apart by content (a torch zip
+    starts `PK\\x03\\x04`), not by suffix. A file that is neither raises."""
+    if flax_msgpack.is_torch_file(path):
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        num, sd = state["num_keypoints"], state["state_dict"]
+    else:
+        blob = flax_msgpack.restore(path)
+        num = int(blob["num_keypoints"])
+        sd = from_jax_params(flax_msgpack.flatten(blob["params"]["params"]))
+    net = LandmarkNet(num)
+    net.load_state_dict(sd, strict=True)
     return net.to(device).eval()
 
 

@@ -155,14 +155,18 @@ class MorphableDiffusion(nn.Module):
         return self.unet(x_in, t, clip_embed, volume_feats, cfg_doubled=cfg_doubled,
                          train=train, remat=remat)
 
-    def _volume(self, x_cf, t_embed, v_embed, batch, views=None, mesh=None):
+    def _volume(self, x_cf, t_embed, v_embed, batch, views=None, mesh=None,
+                ordered=False):
         """All N noisy views (B, N, 4, h, w) -> the shared spatial volume.
         On a mesh, x_cf holds this rank's views [lo, hi) = views of the
-        batch's N, and the per-view inputs are sliced to them."""
+        batch's N, and the per-view inputs are sliced to them. ordered: the
+        mesh-voxel scatter in index order (serving: the same bits every
+        call)."""
         lo, hi = views or (0, v_embed.shape[1])
         return self.spatial_volume.construct_spatial_volume(
             x_cf, t_embed, v_embed[:, lo:hi], batch["target_K"][:, lo:hi],
-            batch["target_RT"][:, lo:hi], batch["vertices"], batch["vertex_mask"], mesh=mesh)
+            batch["target_RT"][:, lo:hi], batch["vertices"], batch["vertex_mask"], mesh=mesh,
+            ordered=ordered)
 
     def _frustum(self, volume, t_embed, v_embed, batch, views):
         """Frustum volumes of the views `views` ((B, TN) long) ->
@@ -192,6 +196,10 @@ class MorphableDiffusion(nn.Module):
         (v_embed and the batch keep all N); the volume couples them across
         the ranks and the rest runs on this rank's views, whose eps it
         returns.
+
+        The mesh-voxel scatter adds in index order, so a call gives the same
+        bits every time (an avatar is reproducible from its seed; the ranks
+        of a mesh agree to the bit).
         """
         B, n, h, w, C = x_noisy.shape
         lo, hi = view_range(mesh, v_embed.shape[1])
@@ -199,7 +207,7 @@ class MorphableDiffusion(nn.Module):
             raise ValueError(f"x_noisy holds {n} views, this rank's are [{lo}, {hi})")
         t_embed = self.embed_time(t)
         x_cf = x_noisy.permute(0, 1, 4, 2, 3)  # (B, n, C, h, w)
-        volume = self._volume(x_cf, t_embed, v_embed, batch, (lo, hi), mesh)
+        volume = self._volume(x_cf, t_embed, v_embed, batch, (lo, hi), mesh, ordered=True)
         chunk = batch_view_num if 0 < batch_view_num < n else n
         if n % chunk:
             chunk = n

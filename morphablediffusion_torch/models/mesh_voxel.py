@@ -40,8 +40,12 @@ def scatter_mean_voxels(vert_features, vert_idx, vert_mask, grid_shape, ordered=
     On the card `index_add_` adds a voxel's vertices by atomics, in any
     order; ordered=True adds them in index order (`index_put_` with
     accumulate sorts them, as `index_add_` does under torch's deterministic
-    algorithms), so the grid has the same bits in every call: the ranks of
-    a mesh, which each build the whole volume, need that.
+    algorithms), so the grid has the same bits in every call. Every serving
+    call scatters in order (`MorphableDiffusion.predict_eps_cfg`): an
+    avatar is reproducible from its seed, and the ranks of a mesh, which
+    each build the whole volume, agree to the bit. Training keeps the
+    atomics. The occupancy count adds weights of 0.0 and 1.0, a sum that
+    is exact in any order, so it takes `index_add_` either way.
     """
     Gd, Gh, Gw = grid_shape
     B, Nv, C = vert_features.shape

@@ -91,14 +91,16 @@ class SpatialVolumeNet(nn.Module):
         return self.input_image_size // 8
 
     def construct_spatial_volume(self, x, t_embed, v_embed, target_Ks, target_RTs,
-                                 vertices, vert_mask, mesh=None):
+                                 vertices, vert_mask, mesh=None, ordered=False):
         """x: (B, N, 4, h, w) noisy latents; t_embed: (B, td); v_embed:
         (B, N, vd); target_Ks: (B, N, 3+, 3+); target_RTs: (B, N, 3, 4);
         vertices: (B, Nv, 3) world xyz; vert_mask: (B, Nv).
         Returns (B, C_vol, V, V, V).
 
         mesh: a `parallel.Mesh` with a group: x and the per-view inputs are
-        this rank's N views of the world's N * mesh.world."""
+        this rank's N views of the world's N * mesh.world. ordered: the
+        mesh-voxel scatter adds in index order (`scatter_mean_voxels`); the
+        serving path asks for it, training does not."""
         B, N, C_in, h, w = x.shape
         V, L = self.spatial_volume_size, self.spatial_volume_length
 
@@ -129,9 +131,8 @@ class SpatialVolumeNet(nn.Module):
         big = torch.tensor(1e9, dtype=vertices.dtype, device=vertices.device)
         min_dhw = torch.where(vert_mask[..., None] > 0, vert_dhw, big).amin(1)
         query_dhw = grid_xyz.flip(-1)[None].expand(B, V, V, V, 3)
-        # on a mesh every rank builds the whole volume, the same bits on each
         volume = self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw,
-                                 ordered=mesh is not None and mesh.group is not None)
+                                 ordered=ordered)
         if self.use_spatial_volume:
             # view-major channels n * 16 + c, as the JAX package's
             # (B, V, V, V, N*16) volume

@@ -9,15 +9,15 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on.
 
     None means the CUDA card: without one this raises instead of carrying on
-    quietly on the CPU. The CPU is used only when the caller asks for it
-    (``device="cpu"``), as the tests do.
+    quietly on the CPU, as a CUDA device asked for by name does. The CPU is
+    used only when the caller asks for it (``device="cpu"``), as the tests do.
     """
-    if device is None:
+    if device is None or torch.device(device).type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "port on the CPU")
-        return torch.device("cuda")
+        return torch.device(device or "cuda")
     return torch.device(device)
 
 

@@ -317,3 +317,25 @@ def test_chip_smoke_fitting_phase_helpers(monkeypatch):
     np.testing.assert_array_equal(params[0][-8:], p["shape"])
     assert (chip_smoke.FLAME_VERTICES, chip_smoke.FLAME_FACES) == (5023, 9976)
     assert chip_smoke.LANDMARK_NORMS == 14
+
+
+def test_tools_and_the_msgpack_reader_import_no_jax_flax_or_msgpack():
+    """The flax-msgpack reader, the loaders it feeds and the port's
+    measurement and quality tools import neither JAX, flax, msgpack nor the
+    JAX package: the card's machine has none of them."""
+    names = ("utils.flax_msgpack", "eval.keypoint_net", "apps.train_vae", "apps.train",
+             "apps.eval_2d", "tools.common", "tools.make_flagship_ckpt", "tools.profile_step",
+             "tools.int8_trajectory", "tools.memory_report", "tools.eval_flame_fit",
+             "tools.eval_landmark_net", "tools.eval_matting", "tools.eval_anchors")
+    code = ("import importlib, sys\n"
+            f"for n in {names!r}:\n"
+            "    importlib.import_module('morphablediffusion_torch.' + n)\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'flax', 'msgpack', 'morphablediffusion_tpu'))\n"
+            "print('BAD', bad)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout, r.stdout
+    script = PKG / "tools" / "eval_synth_scratch.sh"
+    assert os.access(script, os.X_OK)
+    assert "morphablediffusion_tpu" not in script.read_text()

@@ -11,6 +11,9 @@ arrays handed to both sides; the port runs on the CPU in fp32.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -335,3 +338,17 @@ def assert_slice_matches(r, tol: float = 1e-4):
     assert_close(r["t_images"], r["images"], tol)
     assert torch.equal(r["t_lat2"], r["t_lat"])
     assert r["launches"] == (0,) * len(r["launches"])
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def jax_tool(name: str):
+    """The repository's JAX tool tools/<name>.py as a module (`tools/` is no
+    package), for the port's tool tests."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    spec = importlib.util.spec_from_file_location(f"jax_tool_{name}", REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
