@@ -10,8 +10,8 @@ All five reference metrics are computed in-repo:
   * SSIM / PSNR / PCK: numpy on the host (`eval/metrics.py`).
   * FID: Frechet distance over CLIP-tower features of the model's own frozen
     CLIP encoder (`--ckpt`, a reference .ckpt/.pt/.pth read by the port's
-    importer, or a checkpoint directory of the port's train CLI; the JAX
-    package's Orbax directories are not read). The
+    importer, or a checkpoint directory of the port's or the JAX package's
+    train CLI, whose Orbax params export is read without JAX). The
     reference uses InceptionV3 features (torchmetrics); the default
     --fid_backend auto picks that backend whenever torchmetrics imports,
     else CLIP-FID, whose absolute values are not comparable across feature
@@ -65,15 +65,16 @@ def _load_gt(view_dir, size=256):
 def _load_clip_encoder(ckpt_path: str, cfg_path: str, device):
     """The CLIP tower of a reference checkpoint, whole-model or the tower
     alone (its `clip_image_encoder.model.visual.*` keys, through the port's
-    importer), or of a checkpoint directory of the port's train CLI (its
-    params export), fp32 on `device`; the config (or `Config()`) gives its
+    importer), or of a checkpoint directory (the port's params export, else
+    the JAX package's newest Orbax one, of which only the tower's leaves are
+    read), fp32 on `device`; the config (or `Config()`) gives its
     dimensions."""
     import torch
     from torch import nn
 
     from morphablediffusion_torch.apps.generate_face import REFERENCE_SUFFIXES
     from morphablediffusion_torch.models.clip import CLIPImageEncoder
-    from morphablediffusion_torch.utils.checkpoint import CheckpointManager
+    from morphablediffusion_torch.utils.checkpoint import params_source, params_state_dict
     from morphablediffusion_torch.utils.config import Config, load_config
     from morphablediffusion_torch.utils.torch_import import (
         import_state_dict,
@@ -88,15 +89,14 @@ def _load_clip_encoder(ckpt_path: str, cfg_path: str, device):
         output_dim=c.output_dim)
     holder.to(device)
     if not str(ckpt_path).endswith(REFERENCE_SUFFIXES):
-        params = CheckpointManager(ckpt_path).params
-        if not params.is_file():
+        try:
+            source = params_source(ckpt_path)
+        except FileNotFoundError:
             raise SystemExit(f"--ckpt {ckpt_path}: neither a reference .ckpt/.pt/.pth nor "
-                             "a checkpoint directory of the port's train CLI (a JAX Orbax "
-                             "directory cannot be read without JAX)")
-        prefix = "clip_image_encoder."
-        sd = torch.load(params, map_location="cpu", weights_only=True)
-        holder.clip_image_encoder.load_state_dict(
-            {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}, strict=True)
+                             "a checkpoint directory of the port's or the JAX package's "
+                             "train CLI") from None
+        sd = params_state_dict(source, device, "clip_image_encoder")
+        holder.clip_image_encoder.load_state_dict(sd, strict=True)
         print(f"clip tower: the params export of {ckpt_path}")
         return holder.clip_image_encoder.eval()
     # only the tower's keys: the importer pads the UNet's input conv when it
@@ -146,8 +146,8 @@ def main(argv=None):
     parser.add_argument("--image_size", type=int, default=256)
     parser.add_argument("--ckpt", type=str, default="",
                         help="reference model checkpoint (.ckpt/.pt/.pth) or the "
-                             "port's train-CLI checkpoint dir, providing the CLIP "
-                             "tower for FID features")
+                             "port's or the JAX package's train-CLI checkpoint dir, "
+                             "providing the CLIP tower for FID features")
     parser.add_argument("--cfg", type=str, default="",
                         help="model config yaml (CLIP dims for --ckpt)")
     parser.add_argument("--fid_backend", type=str, default="auto",

@@ -20,9 +20,9 @@ another expression, drawn by `random.Random(seed)`; the held-out expression
 `--ckpt` takes what the port's `generate_face` takes: a reference
 .ckpt/.pt/.pth (one that ships the spconv `xyzc_net` weights selects the
 fine conditioner at the config's dataset-max grid, since meshes vary per
-(subject, expression)), `random` (seeded weights), or a run directory of
-the port's train CLI. The JAX package's Orbax directories cannot be read
-without JAX. The model runs on the CUDA card and raises without one unless
+(subject, expression)), `random` (seeded weights), or a checkpoint
+directory of the port's or the JAX package's train CLI (the JAX one's Orbax
+params export is read without JAX). The model runs on the CUDA card and raises without one unless
 `--device cpu` is given; weights are cast to the config's compute dtype.
 """
 

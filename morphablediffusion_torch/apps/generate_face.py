@@ -15,9 +15,9 @@ RGBA views).
 `--ckpt` takes a reference .ckpt/.pt/.pth (imported by
 `utils/torch_import.py`; one that ships the spconv `xyzc_net` weights
 selects the fine conditioner, cropped to the mesh), `random` (seeded
-weights, seed 0), or a run directory of the port's train CLI (its params
-export). The JAX package's Orbax directories cannot be read without JAX.
-It runs on the CUDA card and raises without one unless `--device cpu` is
+weights, seed 0), or a checkpoint directory: the port's train CLI's or the
+JAX package's (its newest Orbax params export, read without JAX by
+`utils/orbax_reader.py`), or one Orbax params tree (`params/<step>`). It runs on the CUDA card and raises without one unless `--device cpu` is
 given. `--view_parallel` under torchrun shares the views among the ranks
 (one process a card, the JAX CLI's view sharding; rank 0 writes the files):
 
@@ -208,8 +208,9 @@ def load_params(model, ckpt_path, state_dict=None):
     """Fill `model` from `ckpt_path`: 'random' gives seeded weights (seed
     0); a reference .ckpt/.pt/.pth is imported over seeded weights (the
     parameters it does not map keep them; `state_dict`, if given, is the
-    file already read); else a run directory of the port's train CLI.
-    Returns the import report, or None."""
+    file already read); else a checkpoint directory, the port's or the JAX
+    package's (`utils.checkpoint.load_params_dir`). Returns the import
+    report, or None."""
     from morphablediffusion_torch.weights import seeded_params
 
     if ckpt_path == "random":
@@ -220,14 +221,9 @@ def load_params(model, ckpt_path, state_dict=None):
 
         seeded_params(model, 0)
         return import_torch_checkpoint(ckpt_path, model, state_dict=state_dict)
-    from morphablediffusion_torch.utils.checkpoint import CheckpointManager
+    from morphablediffusion_torch.utils.checkpoint import load_params_dir
 
-    mgr = CheckpointManager(ckpt_path)
-    if not mgr.params.is_file():
-        raise FileNotFoundError(
-            f"no params export under {mgr.ckpt_dir} (the port reads its own train "
-            "CLI's run directories; a JAX Orbax checkpoint cannot be read without JAX)")
-    mgr.restore_params(model)
+    load_params_dir(model, ckpt_path)
     return None
 
 
@@ -316,8 +312,8 @@ def main(argv=None):
     parser.add_argument("--cfg", type=str, default="configs/facescape.yaml")
     parser.add_argument("--ckpt", type=str, default="ckpt/facescape_flame.ckpt",
                         help="a reference .ckpt/.pt/.pth, 'random' (seeded weights), or "
-                             "a run directory of the port's train CLI; the JAX "
-                             "package's Orbax directories cannot be read")
+                             "a checkpoint directory of the port's or the JAX package's "
+                             "train CLI (its params export)")
     parser.add_argument("--output_dir", type=str, required=True)
     parser.add_argument("--cfg_scale", type=float, default=2.0)
     # reference default 8 (a memory knob); 0 = all 16 views in one batch

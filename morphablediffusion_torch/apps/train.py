@@ -26,7 +26,14 @@ ranks under torchrun is not supported).
 --vae_from grafts a `train_vae` file into the frozen first stage, and
 --finetune_from then imports a reference checkpoint (`utils/torch_import.py`)
 over the seeded weights, both before step 0; both are ignored on --resume,
-whose checkpoint supersedes them. --rss_restart_gb N: at a rolling-checkpoint
+whose checkpoint supersedes them. --resume also continues a run of the JAX
+package's train CLI: where `<logdir>/<name>/ckpt/last/` holds an Orbax
+TrainState and no port checkpoint, its step, parameters, AdamW moments and
+gradient accumulator are read without JAX (`utils/checkpoint.py::
+jax_train_state`); its threefry key cannot become a torch.Generator state, so
+the generator is seeded from (seed, step). From then on the port writes its
+own checkpoints beside JAX's step directories and resumes from them.
+--rss_restart_gb N: at a rolling-checkpoint
 step before the last, if the host RSS exceeds N GiB, the process replaces
 itself (`os.execv`) with the same command plus --resume.
 """
@@ -121,7 +128,9 @@ def main(argv=None):
     parser.add_argument("-l", "--logdir", type=str, default="runs")
     parser.add_argument("-n", "--name", type=str, default="run")
     parser.add_argument("-s", "--seed", type=int, default=6033)
-    parser.add_argument("--resume", action="store_true")
+    parser.add_argument("--resume", action="store_true",
+                        help="continue the run: the port's checkpoint, else the JAX "
+                             "train CLI's Orbax TrainState in the same ckpt directory")
     parser.add_argument("--max_steps", type=int, default=0, help="override config")
     parser.add_argument("--profile_steps", type=str, default="",
                         help="trace steps with torch.profiler, e.g. '10-15'")

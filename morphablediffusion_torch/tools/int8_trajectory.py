@@ -15,10 +15,12 @@ same weights and the same noise stream (a `torch.Generator` seeded with
 under the JAX tool's JSON keys (sample_steps, seed, per_step_rel_l2,
 final_rel_l2, final_image_psnr_bf16_vs_w8a8, final_image_max_abs). The
 weights come from a reference-named checkpoint through the port's importer
-(`tools/make_flagship_ckpt.py` writes one), in place of the JAX tool's
-Orbax cache; `--ckpt random` takes seeded weights (seed 0).
+(`tools/make_flagship_ckpt.py` writes one), or from a checkpoint directory:
+a JAX run's (its Orbax params export, read without JAX), the port's, or an
+Orbax params tree itself such as the JAX tool's `--native_cache`; `--ckpt
+random` takes seeded weights (seed 0).
 
-    python -m morphablediffusion_torch.tools.int8_trajectory --ckpt flagship.ckpt \
+    python -m morphablediffusion_torch.tools.int8_trajectory --ckpt flagship.ckpt|RUN/ckpt \
         [--out int8_trajectory.json] [--sample_steps 50] [--seed 7] [--device cpu]
 
 `--out` defaults to the working directory.
@@ -38,15 +40,19 @@ import torch
 
 def load_model(cfg, ckpt: str, device):
     """The serving model of `cfg` (bf16 weights, fp32 norms) on `device`,
-    its weights from a reference-named checkpoint, or seeded (seed 0) for
-    ckpt 'random'."""
+    its weights from a reference-named checkpoint or a checkpoint directory
+    (`utils.checkpoint.load_params_dir`), or seeded (seed 0) for ckpt
+    'random'."""
     from morphablediffusion_torch.models.diffusion import MorphableDiffusion
+    from morphablediffusion_torch.utils.checkpoint import load_params_dir
     from morphablediffusion_torch.utils.torch_import import import_torch_checkpoint
     from morphablediffusion_torch.weights import cast_for_serving, seeded_params
 
     model = MorphableDiffusion(cfg.model, device=device)
     if ckpt == "random":
         seeded_params(model, 0)
+    elif Path(ckpt).is_dir():
+        load_params_dir(model, ckpt)
     else:
         report = import_torch_checkpoint(ckpt, model)
         if report["unused_torch_keys"] or report["unmatched_model_paths"]:
@@ -129,8 +135,9 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--out", default="int8_trajectory.json")
     ap.add_argument("--ckpt", required=True,
-                    help="reference-named .ckpt/.pt (tools/make_flagship_ckpt.py), "
-                         "or 'random'")
+                    help="reference-named .ckpt/.pt (tools/make_flagship_ckpt.py), a "
+                         "checkpoint directory (a JAX run's, the port's, or an Orbax params "
+                         "tree such as the JAX tool's --native_cache), or 'random'")
     ap.add_argument("--sample_steps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--device", type=str, default=None,

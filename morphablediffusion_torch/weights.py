@@ -60,26 +60,31 @@ def from_jax_params(flat: Dict[str, np.ndarray], device=None) -> Dict[str, torch
     sd = {}
     for path, arr in flat.items():
         parts = path.split("/")
-        a = np.asarray(arr, dtype=np.float32)
+        # bf16 leaves come as torch tensors (numpy has no bfloat16); the
+        # layout change runs on `dev`, after the copy there
+        if isinstance(arr, torch.Tensor):
+            a = arr.to(dev, torch.float32, copy=True)
+        else:
+            a = torch.from_numpy(np.require(arr, np.float32, ["C", "W"])).to(dev)
         leaf = parts[-1]
         at = lambda name: ".".join(parts[:-1] + [name])
         if leaf == "kernel":
             if a.ndim == 2:
-                a = a.T
+                a = a.t()
             elif _TRANSPOSED.search(path):
-                a = a[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+                a = a.flip((0, 1, 2)).permute(3, 4, 0, 1, 2)
             elif a.ndim == 4:
-                a = a.transpose(3, 2, 0, 1)
+                a = a.permute(3, 2, 0, 1)
             elif a.ndim == 5:
-                a = a.transpose(4, 3, 0, 1, 2)
+                a = a.permute(4, 3, 0, 1, 2)
             else:
-                raise ValueError(f"unexpected kernel rank at {path}: {a.shape}")
+                raise ValueError(f"unexpected kernel rank at {path}: {tuple(a.shape)}")
             key = at("weight")
         elif leaf == "scale":
             key = at("weight")
         else:
             key = ".".join(parts)
-        sd[key] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        sd[key] = a.contiguous()
     return sd
 
 

@@ -4,16 +4,16 @@ card, about 6 minutes).
 
     python tests/rank_step_noise.py [--repeats 4] [--rank_runs 4] [--out rank_step_noise.json]
 
-Phase 12 (c) holds the loss and grad norm of both Trainer steps to
-NOISE_FACTOR x the plain-vs-plain gap of one loss and backward plus a floor.
+Phase 12 (c) holds the loss and grad norm of Trainer step i to
+NOISE_FACTOR x step i's run-to-run gap plus a floor (`chip_smoke.step_bounds`:
+the largest gap between one process's three runs of the two steps).
 Training scatters its mesh voxels with `index_add_` atomics in one process
 and in index order on a mesh, so each run of either differs. This runs, on
 `Config()` at phase 6's batch and phase 12 (c)'s draws:
 
   * `--repeats` times in this process: `chip_smoke.one_process_references`
-    (the gate's bound, and two Trainer steps with the kernels), then two
-    Trainer steps with the plain versions, twice (the plain-vs-plain gap
-    of the second step, after one AdamW update);
+    (two Trainer steps with the kernels, and twice with the plain versions:
+    each step's plain-vs-plain gap, and the gate's bounds);
   * `--rank_runs` times: two spawned ranks sharing the card under gloo,
     each `chip_smoke.rank_training`.
 
@@ -75,22 +75,6 @@ def rank_run(tmp: Path):
     return json.loads((tmp / "rank0.json").read_text())
 
 
-def plain_steps(device):
-    """Two Trainer steps with the plain versions on (c)'s batch and draws."""
-    from morphablediffusion_torch.training.trainer import Trainer
-    from morphablediffusion_torch.utils.config import Config
-
-    trainer = Trainer(Config(), seed=0)
-    batch, draws = chip_smoke.train_inputs(trainer.model)
-    with chip_smoke.plain_versions():
-        metrics = [trainer.train_step(batch, draws=d) for d in draws]
-    out = dict(train_loss=[float(m["loss"]) for m in metrics],
-               grad_norm=[float(m["grad_norm"]) for m in metrics])
-    del trainer
-    torch.cuda.empty_cache()
-    return out
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -112,18 +96,16 @@ def main():
     for i in range(args.repeats):
         t0 = time.perf_counter()
         ref = chip_smoke.one_process_references(device)
-        one = dict(train_loss=ref["train_loss"], grad_norm=ref["grad_norm"],
-                   loss_bound=chip_smoke.NOISE_FACTOR * rel(ref["loss_r"], ref["loss_p"])
-                   + chip_smoke.REL_TRAIN_LOSS,
-                   norm_bound=chip_smoke.NOISE_FACTOR * rel(ref["norm_r"], ref["norm_p"])
-                   + chip_smoke.REL_TRAIN_GRAD)
-        pair = [plain_steps(device), plain_steps(device)]
-        one["plain_vs_plain"] = {k: [rel(a, b) for a, b in zip(pair[0][k], pair[1][k])]
+        pair = [dict(train_loss=loss, grad_norm=norm)
+                for loss, norm in (ref["plain_steps"], ref["plain_steps_r"])]
+        one = dict(train_loss=ref["train_loss"], grad_norm=ref["grad_norm"])
+        one["plain_vs_plain"] = {k: [rel(a, b) for a, b in zip(pair[1][k], pair[0][k])]
                                  for k in ("train_loss", "grad_norm")}
+        one["loss_bound"], one["norm_bound"] = chip_smoke.step_bounds(ref)
         ones.append(one)
         plains += pair
         print(f"one process {i}: losses {one['train_loss']}, grad norms {one['grad_norm']}; "
-              f"bounds loss {one['loss_bound']:.3e}, norm {one['norm_bound']:.3e}; plain vs "
+              f"bounds by step loss {one['loss_bound']}, norm {one['norm_bound']}; plain vs "
               f"plain, two steps: {one['plain_vs_plain']} ({time.perf_counter() - t0:.1f} s)",
               flush=True)
     ranks = []
@@ -142,13 +124,13 @@ def main():
     for i, r in enumerate(ranks):
         for j, one in enumerate(ones):
             g = gaps(r, one)
-            held = [g["train_loss"][s] <= one["loss_bound"] and g["grad_norm"][s] <= one["norm_bound"]
-                    for s in range(2)]
+            held = [g["train_loss"][s] <= one["loss_bound"][s]
+                    and g["grad_norm"][s] <= one["norm_bound"][s] for s in range(2)]
             fails = [f + (not h) for f, h in zip(fails, held)]
             pairs.append(dict(ranks=i, one=j, gaps=g, held=held))
-            print(f"ranks {i} vs one process {j}: loss gaps {g['train_loss']} (bound "
-                  f"{one['loss_bound']:.3e}), norm gaps {g['grad_norm']} (bound "
-                  f"{one['norm_bound']:.3e}); gate held at steps 1, 2: {held}", flush=True)
+            print(f"ranks {i} vs one process {j}: loss gaps {g['train_loss']} (bounds "
+                  f"{one['loss_bound']}), norm gaps {g['grad_norm']} (bounds "
+                  f"{one['norm_bound']}); gate held at steps 1, 2: {held}", flush=True)
     for k in ("train_loss", "grad_norm"):
         for s in range(2):
             print(f"{k} step {s + 1}: one process vs one process max "

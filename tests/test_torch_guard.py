@@ -339,3 +339,37 @@ def test_tools_and_the_msgpack_reader_import_no_jax_flax_or_msgpack():
     script = PKG / "tools" / "eval_synth_scratch.sh"
     assert os.access(script, os.X_OK)
     assert "morphablediffusion_tpu" not in script.read_text()
+
+
+def test_orbax_reader_and_writer_import_no_jax_orbax_tensorstore_or_zstandard():
+    """The Orbax reader, the fixture writer and the entry points that take a
+    JAX run directory import neither JAX, flax, orbax, tensorstore,
+    zstandard nor the JAX package, also while reading the committed
+    JAX-written fixture and writing a params export: the card's machine has
+    none of them. Their sources name none of them in an import."""
+    names = ("utils.orbax_reader", "tools.make_orbax_run", "utils.checkpoint",
+             "apps.generate_face", "apps.eval_generate", "apps.eval_2d", "apps.train",
+             "tools.int8_trajectory")
+    code = ("import importlib, sys, tempfile\n"
+            f"for n in {names!r}:\n"
+            "    importlib.import_module('morphablediffusion_torch.' + n)\n"
+            "from morphablediffusion_torch.tools import make_orbax_run as W\n"
+            "from morphablediffusion_torch.utils import orbax_reader as R\n"
+            "import numpy as np\n"
+            "with tempfile.TemporaryDirectory() as tmp:\n"
+            "    ckpt = W.unpack_fixture(tmp)\n"
+            "    print('LEAVES', len(R.read_tree(ckpt / 'last' / str(W.FIXTURE_STEP))))\n"
+            "    W.write_step(ckpt / 'params' / '9', {('params', 'w'): np.ones(3, np.float32)})\n"
+            "    print('WROTE', R.read_tree(ckpt / 'params' / '9')[('params', 'w')].sum())\n"
+            "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'flax', 'orbax', 'tensorstore', 'zstandard',\n"
+            "              'ml_dtypes', 'morphablediffusion_tpu'))\n"
+            "print('BAD', bad)\n")
+    r = _run(code)
+    assert r.returncode == 0, r.stderr
+    assert "BAD []" in r.stdout and "LEAVES 4420" in r.stdout and "WROTE 3.0" in r.stdout, r.stdout
+    for rel in ("utils/orbax_reader.py", "tools/make_orbax_run.py"):
+        text = (PKG / rel).read_text()
+        for mod in ("jax", "orbax", "tensorstore", "zstandard", "flax", "ml_dtypes",
+                    "morphablediffusion_tpu"):
+            assert f"import {mod}" not in text and f"from {mod}" not in text, (rel, mod)
