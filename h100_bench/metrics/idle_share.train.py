@@ -1,0 +1,8 @@
+"""Share of the traced window (whole calls, host clock) in which no kernel
+ran on the device, in %."""
+
+
+def read(s):
+    if s["kind"] != "train" or s["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - s["busy_s"] / s["window_s"])

@@ -1,0 +1,11 @@
+"""Device time with at least one kernel running, per DDIM step (the DDIM
+updates between the steps' spans included)."""
+
+from h100_bench import trace
+
+
+def read(s):
+    if s["kind"] != "serve" or not s["steps"]:
+        return None
+    m = trace.step_regions(s)
+    return trace.union_s(s["start"][m], s["end"][m]) * 1e3 / s["steps"] if m.any() else None
