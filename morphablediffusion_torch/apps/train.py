@@ -2,7 +2,9 @@
 
 Counterpart of the JAX package's `apps/train.py`: flags -b/-l/-n/-s/--resume/
 --max_steps/--profile_steps/--finetune_from/--vae_from/--rss_restart_gb, the
-FaceScape and THuman datasets, the step log line (with the host's RSS),
+FaceScape and THuman datasets, the step log line (with the host's RSS and
+the caching allocator's cudaMalloc / cudaFree calls and retries since the
+previous line, `utils/spans.py::counters`),
 TensorBoard scalars where `torch.utils.tensorboard` imports, a validation
 contact sheet every `val_check_interval` steps (the DDIM sampler with the
 config's `batch_view_num`), rolling and snapshot checkpoints, the refusal to
@@ -156,6 +158,7 @@ def main(argv=None):
     from morphablediffusion_torch.parallel.collectives import barrier
     from morphablediffusion_torch.sampling import SyncDDIMSampler
     from morphablediffusion_torch.training.trainer import Trainer
+    from morphablediffusion_torch.utils import spans
     from morphablediffusion_torch.utils.checkpoint import CheckpointManager
     from morphablediffusion_torch.utils.config import load_config
 
@@ -208,6 +211,7 @@ def main(argv=None):
     batches = loader.epochs()
     sampler = val_batches = prof = None
     t_last = time.perf_counter()
+    alloc_last = spans.counters(device)
     try:
         while trainer.step < cfg.train.max_steps:
             if trainer.step == prof_lo and rank0:
@@ -235,9 +239,13 @@ def main(argv=None):
                        if device.type == "cuda" else 0.0)
                 lr = trainer.lr_at(trainer.opt_step)
                 grad_norm = float(metrics["grad_norm"])
+                alloc = spans.counters(device)  # the caching allocator since the last line
+                churn = {k: v - alloc_last[k] for k, v in alloc.items()}
+                alloc_last = alloc
                 say(f"step {step} loss {loss:.4f} grad_norm {grad_norm:.4f} lr {lr:.2e} "
-                      f"{dt * 1000:.0f} ms/step peak {mem:.1f} GiB rss {rss_gib():.1f} GiB",
-                      flush=True)
+                      f"{dt * 1000:.0f} ms/step peak {mem:.1f} GiB rss {rss_gib():.1f} GiB "
+                      f"cudaMalloc {churn['cuda_malloc']} cudaFree {churn['cuda_free']} "
+                      f"retries {churn['alloc_retries']}", flush=True)
                 if writer:
                     for tag, value in (("loss", loss), ("step_time_s", dt),
                                        ("grad_norm", grad_norm), ("hbm_gib", mem), ("lr", lr)):

@@ -36,6 +36,7 @@ from morphablediffusion_torch.ops.embeddings import timestep_embedding, viewpoin
 from morphablediffusion_torch.parallel.mesh import view_range
 from morphablediffusion_torch.utils import resolve_device, torch_dtype
 from morphablediffusion_torch.utils.config import ModelConfig
+from morphablediffusion_torch.utils.spans import span
 
 FIRST_STAGE_SCALE = 0.18215
 
@@ -128,8 +129,10 @@ class MorphableDiffusion(nn.Module):
         chunk = batch_view_num if 0 < batch_view_num < N else N
         if N % chunk:
             chunk = N
-        img = torch.cat([self.first_stage.decode(flat[i:i + chunk] / FIRST_STAGE_SCALE).float()
-                         for i in range(0, B * N, chunk)])
+        with span("md.decode"):
+            img = torch.cat([
+                self.first_stage.decode(flat[i:i + chunk] / FIRST_STAGE_SCALE).float()
+                for i in range(0, B * N, chunk)])
         img = img.permute(0, 2, 3, 1)
         return img.reshape((B, N) + img.shape[1:])
 
@@ -201,6 +204,12 @@ class MorphableDiffusion(nn.Module):
         bits every time (an avatar is reproducible from its seed; the ranks
         of a mesh agree to the bit).
         """
+        with span("md.step"):
+            return self._predict_eps_cfg(x_noisy, t, clip_embed, x_input_latent, v_embed,
+                                         batch, cfg_scale, batch_view_num, mesh)
+
+    def _predict_eps_cfg(self, x_noisy, t, clip_embed, x_input_latent, v_embed, batch,
+                         cfg_scale, batch_view_num, mesh):
         B, n, h, w, C = x_noisy.shape
         lo, hi = view_range(mesh, v_embed.shape[1])
         if hi - lo != n:
@@ -274,9 +283,10 @@ class MorphableDiffusion(nn.Module):
         if draws is None:
             draws = self.draw_training_noise(B, generator, sched.num_timesteps)
 
-        x = self.encode_image(batch["target_image"], draws["vae_target"])
-        x_concat = self.encode_image(batch["input_image"], draws["vae_input"])
-        clip_embed = self.encode_clip(batch["input_image"])
+        with span("md.encode"):
+            x = self.encode_image(batch["target_image"], draws["vae_target"])
+            x_concat = self.encode_image(batch["input_image"], draws["vae_input"])
+            clip_embed = self.encode_clip(batch["input_image"])
 
         t, noise = draws["t"], draws["noise"]
         x_noisy = schedules.add_noise(x, noise, t, sched)
@@ -308,6 +318,7 @@ class MorphableDiffusion(nn.Module):
 
     def prepare_inference(self, batch):
         """CLIP + VAE encode the input view (posterior mode)."""
-        return {"x_input": self.encode_image(batch["input_image"]),
-                "clip_embed": self.encode_clip(batch["input_image"]),
-                "v_embed": self.embed_viewpoints(batch)}
+        with span("md.prepare"):
+            return {"x_input": self.encode_image(batch["input_image"]),
+                    "clip_embed": self.encode_clip(batch["input_image"]),
+                    "v_embed": self.embed_viewpoints(batch)}

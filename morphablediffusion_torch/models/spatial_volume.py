@@ -43,6 +43,7 @@ from morphablediffusion_torch.models.mesh_voxel import FineMeshVoxelNet, MeshVox
 from morphablediffusion_torch.ops import geometry
 from morphablediffusion_torch.parallel.collectives import all_gather_cat, all_reduce_sum
 from morphablediffusion_torch.ops.grid_sample import grid_sample_2d, grid_sample_3d
+from morphablediffusion_torch.utils.spans import span
 
 
 def spatial_grid_xyz(size: int, length: float, device=None, dtype=torch.float32):
@@ -101,6 +102,12 @@ class SpatialVolumeNet(nn.Module):
         this rank's N views of the world's N * mesh.world. ordered: the
         mesh-voxel scatter adds in index order (`scatter_mean_voxels`); the
         serving path asks for it, training does not."""
+        with span("md.volume"):
+            return self._spatial_volume(x, t_embed, v_embed, target_Ks, target_RTs, vertices,
+                                        vert_mask, mesh, ordered)
+
+    def _spatial_volume(self, x, t_embed, v_embed, target_Ks, target_RTs, vertices,
+                        vert_mask, mesh, ordered):
         B, N, C_in, h, w = x.shape
         V, L = self.spatial_volume_size, self.spatial_volume_length
 
@@ -131,8 +138,9 @@ class SpatialVolumeNet(nn.Module):
         big = torch.tensor(1e9, dtype=vertices.dtype, device=vertices.device)
         min_dhw = torch.where(vert_mask[..., None] > 0, vert_dhw, big).amin(1)
         query_dhw = grid_xyz.flip(-1)[None].expand(B, V, V, V, 3)
-        volume = self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw,
-                                 ordered=ordered)
+        with span("md.mesh_voxel"):
+            volume = self.mesh_voxel(smpl_feats, vert_dhw, min_dhw, vert_mask, query_dhw,
+                                     ordered=ordered)
         if self.use_spatial_volume:
             # view-major channels n * 16 + c, as the JAX package's
             # (B, V, V, V, N*16) volume
@@ -146,6 +154,10 @@ class SpatialVolumeNet(nn.Module):
         """spatial_volume: (B, C, V, V, V); t_embed: (B, td); v_embed_sel:
         (B, TN, vd); poses: (B, TN, 3, 4); Ks: (B, TN, 3+, 3+).
         Returns ({width: (B*TN, C', D', w, w)}, depth (B*TN, D, h, w))."""
+        with span("md.frustum"):
+            return self._frustum_volume(spatial_volume, t_embed, v_embed_sel, poses, Ks)
+
+    def _frustum_volume(self, spatial_volume, t_embed, v_embed_sel, poses, Ks):
         B, TN = poses.shape[:2]
         Hf = self.frustum_volume_size
         D = self.frustum_volume_depth

@@ -44,6 +44,7 @@ from morphablediffusion_torch.models.layers import (
 )
 from morphablediffusion_torch.ops import depth_attention as da
 from morphablediffusion_torch.ops.embeddings import timestep_embedding
+from morphablediffusion_torch.utils.spans import span
 
 # decoder output block -> index of the frustum width its DepthTransformer
 # reads (width = latent >> index); the middle block reads index 3
@@ -253,24 +254,33 @@ class DepthWiseUNet(nn.Module):
         train selects the training gate of the DepthTransformers; remat
         recomputes the blocks in the backward pass. Returns fp32
         (B, out_ch, H, W)."""
+        with span("md.unet"):
+            return self._forward(x, timesteps, context, source_dict, cfg_doubled, train, remat)
+
+    def _forward(self, x, timesteps, context, source_dict, cfg_doubled, train, remat):
         dt = self.dtype
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(dt))
         x = x.to(dt)
         context = context.to(dt)
         moments = {}  # ctx_moments per frustum width, for the blocks that fuse
 
-        def run(name, *args):
+        def call(name, *args):
             block = getattr(self, name)
             if remat and torch.is_grad_enabled():
                 return checkpoint(block, *args, use_reentrant=False)
             return block(*args)
 
-        def cond(name, h):
-            w = h.shape[-1]
-            ctx = source_dict[w]
-            if getattr(self, name).fused(ctx, train) and w not in moments:
-                moments[w] = da.ctx_moments(ctx)
-            return run(name, h, ctx, cfg_doubled, train, moments.get(w))
+        def run(name, *args):  # a ResBlock or a SpatialTransformer
+            with span("md.unet.attn" if name.endswith("attn") else "md.unet.res"):
+                return call(name, *args)
+
+        def cond(name, h):  # a DepthTransformer, its context moments included
+            with span("md.unet.cond"):
+                w = h.shape[-1]
+                ctx = source_dict[w]
+                if getattr(self, name).fused(ctx, train) and w not in moments:
+                    moments[w] = da.ctx_moments(ctx)
+                return call(name, h, ctx, cfg_doubled, train, moments.get(w))
 
         h = self.input_conv(x)
         hs = [h]

@@ -25,6 +25,7 @@ from morphablediffusion_torch.models.diffusion import MorphableDiffusion
 from morphablediffusion_torch.ops import schedules
 from morphablediffusion_torch.parallel.collectives import all_gather_cat
 from morphablediffusion_torch.parallel.mesh import view_range
+from morphablediffusion_torch.utils.spans import span
 
 
 class SyncDDIMSampler:
@@ -71,11 +72,13 @@ class SyncDDIMSampler:
             eps = self.model.predict_eps_cfg(x, t, prep["clip_embed"], prep["x_input"],
                                              prep["v_embed"], batch, cfg_scale,
                                              self.batch_view_num, mesh=self.mesh)
-            noise = None
-            if index != 0:
-                noise = (torch.randn(shape, generator=generator, device=dev)
-                         if noises is None else noises[index].to(dev, torch.float32))[:, lo:hi]
-            x = schedules.ddim_step(x, eps, index, self.ddim, noise)
+            with span("md.ddim"):
+                noise = None
+                if index != 0:
+                    noise = (torch.randn(shape, generator=generator, device=dev)
+                             if noises is None
+                             else noises[index].to(dev, torch.float32))[:, lo:hi]
+                x = schedules.ddim_step(x, eps, index, self.ddim, noise)
             if collect_trajectory:
                 traj.append(all_gather_cat(x, 1, self.mesh))
         x = all_gather_cat(x, 1, self.mesh)
@@ -86,8 +89,9 @@ class SyncDDIMSampler:
                noises=None):
         """prepare -> denoise -> VAE decode. Returns (images (B, N, H, W, 3) in
         [-1, 1], latents (B, N, h, w, 4))."""
-        prep = self.model.prepare_inference(batch)
-        latents = self.denoise_latents(batch, prep, cfg_scale, generator, x_init, noises)
-        lo, hi = view_range(self.mesh, latents.shape[1])
-        images = self.model.decode_views(latents[:, lo:hi], self.batch_view_num)
-        return all_gather_cat(images, 1, self.mesh), latents
+        with span("md.sample"):
+            prep = self.model.prepare_inference(batch)
+            latents = self.denoise_latents(batch, prep, cfg_scale, generator, x_init, noises)
+            lo, hi = view_range(self.mesh, latents.shape[1])
+            images = self.model.decode_views(latents[:, lo:hi], self.batch_view_num)
+            return all_gather_cat(images, 1, self.mesh), latents

@@ -43,6 +43,7 @@ from morphablediffusion_torch.parallel.mesh import shard_batch
 from morphablediffusion_torch.training.lr import lambda_linear_schedule
 from morphablediffusion_torch.training.zero import ShardedAdamW
 from morphablediffusion_torch.utils.config import Config
+from morphablediffusion_torch.utils.spans import span
 from morphablediffusion_torch.weights import NORM_MODULES, seeded_params
 
 FROZEN, BASE, COND = "frozen", "base", "cond"
@@ -151,15 +152,19 @@ class Trainer:
         `accumulate_grad_batches` micro-steps. draws: the step's random draws
         injected (tests), else they come from the trainer's generator; on a
         mesh the GLOBAL batch's draws, of which this rank takes its rows."""
-        self.model.zero_grad(set_to_none=True)
-        if self.zero is not None:
-            if draws is None:
-                B = batch["target_image"].shape[0] * self.mesh.world
-                draws = self.model.draw_training_noise(B, self.generator)
-            draws = self.local_draws(draws)
-        loss = self.model.training_loss(batch, draws=draws, generator=self.generator)
-        loss.backward()
-        return self.apply_gradients(loss)
+        with span("md.train_step"):
+            self.model.zero_grad(set_to_none=True)
+            if self.zero is not None:
+                if draws is None:
+                    B = batch["target_image"].shape[0] * self.mesh.world
+                    draws = self.model.draw_training_noise(B, self.generator)
+                draws = self.local_draws(draws)
+            with span("md.forward"):
+                loss = self.model.training_loss(batch, draws=draws, generator=self.generator)
+            with span("md.backward"):
+                loss.backward()
+            with span("md.update"):
+                return self.apply_gradients(loss)
 
     def apply_gradients(self, loss) -> Dict:
         """After `loss.backward()`: grad_norm, accumulation and the optimizer
