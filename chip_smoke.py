@@ -38,9 +38,11 @@ Phases (any failure exits non-zero):
      phases 3, 6, 7, 8, 9, 10, 11 and 13 find, after phase 13 (and at every shape no
      further from an fp64 GroupNorm than the plain version is, times 1 + a
      margin; K4 given eps x 10 must fail that gate at some shape of each
-     dtype),
+     dtype and layout), each call in the layout the model gives it (NCHW or
+     channels-last, the census's),
      with its device time beside its yardstick's
-     (F.group_norm and the activation) at every shape and summed per avatar
+     (F.group_norm and the activation, on the same map) at every shape and
+     summed per avatar
      and per training step, the largest span, and at the widest spans the
      other shares a block could hold (`gn_alternatives`);
   3. one full-width `predict_eps_cfg` step with the kernels and with the
@@ -298,6 +300,7 @@ REL_L2_KERNEL = 1e-2  # bf16 kernel vs its plain bf16 version
 K4_MARGIN = {torch.bfloat16: 1e-7, torch.float32: 0.1}
 K4_FLIPS = 0.02
 L2_BYTES = 50e6  # the H100's L2: a call that moves less stays in it while timed
+GN_LAYOUTS = {0: "NCHW", 1: "NHWC"}  # K4's layouts (ops/group_norm.py NCHW, NHWC)
 REL_L2_STEP = 5e-2  # one whole bf16 CFG step, kernels vs plain versions
 TRAIN_BATCH = 8  # samples per training step, one noisy target view each
 TRAIN_STEPS = 5  # timed training steps, after 2 warm-up steps
@@ -963,15 +966,20 @@ def check_train_kernels(shapes, device, iters: int = 10):
 def gn_census(fn):
     """Every GroupNorm call that fn() makes, in any model (one it builds
     itself too), counted by (x shape, dtype, groups, activation, shifted,
-    eps): `GroupNorm.forward` wrapped for the call. A forward that remat
-    reruns in the backward pass counts again, as it launches again."""
+    eps, layout): `GroupNorm.forward` wrapped for the call; the layout is
+    K4's as the layer's rule gives it (`kernel_layout`, NCHW where the layer
+    copies x). A forward that remat reruns in the backward pass counts
+    again, as it launches again."""
     from morphablediffusion_torch.models.layers import GroupNorm
+    from morphablediffusion_torch.ops import group_norm as gn
 
     counts = {}
     forward = GroupNorm.forward
 
     def counted(mod, x, shift=None):
-        key = (tuple(x.shape), x.dtype, mod.num_groups, mod.act, shift is not None, mod.epsilon)
+        layout = gn.kernel_layout(x)
+        key = (tuple(x.shape), x.dtype, mod.num_groups, mod.act, shift is not None, mod.epsilon,
+               gn.NCHW if layout is None else layout)
         counts[key] = counts.get(key, 0) + 1
         return forward(mod, x, shift)
 
@@ -1029,21 +1037,23 @@ def gn_cost(shape, dtype, shifted, act):
 
 
 def gn_plan_line(key, lib):
-    """K4's plan for a census key (gn_plan) with the clusters the card holds
-    at once (cudaOccupancyMaxActiveClusters); the kernel's shared-memory
-    layout must agree with the plan's."""
+    """K4's plan for a census key (gn_plan, in the key's layout) with the
+    clusters the card holds at once (cudaOccupancyMaxActiveClusters); the
+    kernel's shared-memory layout must agree with the plan's."""
     from morphablediffusion_torch.ops import group_norm as gn
 
     shape, dtype, groups = key[:3]
-    plan = gn.gn_plan(shape, dtype, groups)
+    plan = gn.gn_plan(shape, dtype, groups, layout=key[6])
     C, S, dt = shape[1], math.prod(shape[2:]), gn._DTYPE_CODE[dtype]
-    args = (C, groups, S, plan.pack, plan.cluster, plan.chunk, plan.held, plan.vec, dt)
+    args = (C, groups, S, plan.pack, plan.cluster, plan.chunk, plan.held, plan.vec, dt,
+            plan.layout)
     smem = lib.md_group_norm_smem_bytes(*args)
     if smem != plan.smem:
         raise AssertionError(f"K4 at {key}: the kernel's layout takes {smem} B, the plan "
                              f"{plan.smem} B")
-    return (f"cluster={plan.cluster} pack={plan.pack} chunk={plan.chunk} held={plan.held} "
-            f"vec={plan.vec} grid={plan.blocks} smem={plan.smem} B, max active clusters "
+    return (f"{GN_LAYOUTS[plan.layout]} cluster={plan.cluster} pack={plan.pack} "
+            f"chunk={plan.chunk} held={plan.held} vec={plan.vec} grid={plan.blocks} "
+            f"threads={plan.threads} smem={plan.smem} B, max active clusters "
             f"{lib.md_group_norm_max_clusters(*args)}")
 
 
@@ -1057,12 +1067,25 @@ def gn_alternatives(key):
     """Other plans for a census key's call, timed beside `gn_plan`'s (never
     launched by the port): the same cluster holding 64 KiB a block, and
     holding all of its share where that fits a block, instead of 32 KiB
-    and reading the rest twice."""
+    and reading the rest twice; channels-last, 32 KiB, 96 KiB and all the
+    rows that fit a block, beside the plan's."""
     from morphablediffusion_torch.ops import group_norm as gn
 
     shape, dtype, groups = key[:3]
-    plan = gn.gn_plan(shape, dtype, groups)
+    plan = gn.gn_plan(shape, dtype, groups, layout=key[6])
     esize = torch.finfo(dtype).bits // 8
+    if plan.layout == gn.NHWC:
+        C, ry = shape[1], plan.pack
+        alts = []
+        for held_bytes in (32 * 1024, 96 * 1024, gn.GN_MAX_SMEM):
+            held = min(plan.chunk, held_bytes // (C * esize))
+            smem = gn._gn_smem_nhwc(C, groups, ry, held, esize)
+            while smem > gn.GN_MAX_SMEM:
+                held -= 1
+                smem = gn._gn_smem_nhwc(C, groups, ry, held, esize)
+            if held != plan.held and held not in [a.held for a in alts]:
+                alts.append(plan._replace(held=held, smem=smem))
+        return alts
     if plan.pack > 1:
         return []
     alts = []
@@ -1080,7 +1103,8 @@ def check_group_norm(censuses, device, iters: int = 10):
     input a shape (gamma 1 + N(0, 0.1^2), beta and shift random); and K4's
     relative L2 to GroupNorm in fp64 no more than the plain version's times
     1 + the margin, which K4 given eps x 10 (the 1e-5 / 1e-6 confusion) must
-    exceed at some shape of each dtype. Times (per call,
+    exceed at some shape of each dtype and layout. x is laid out as the
+    census found it (NCHW or channels-last). Times (per call,
     one launch) K4, the plain version and, as the yardstick, F.group_norm
     followed by the activation (one library call for the norm; the shift
     added beforehand, outside the timing), K4 and the yardstick also on the
@@ -1103,7 +1127,7 @@ def check_group_norm(censuses, device, iters: int = 10):
     g = torch.Generator(device).manual_seed(4)
     measured = {}
     for key in keys:
-        shape, dtype, groups, act, shifted, eps = key
+        shape, dtype, groups, act, shifted, eps, layout = key
         B, C = shape[:2]
         args = gn_inputs(key, g, device)
         x, shift, gamma, beta = args[:4]
@@ -1138,8 +1162,8 @@ def check_group_norm(censuses, device, iters: int = 10):
                          f"{queued_ms(lambda: gn.group_norm_kernel(*args, plan=a)):.4f}"
                          for a in (gn_alternatives(key) if key in widest_keys else []))
         alts = f"; other plans (device ms): {alts}" if alts else ""
-        log(f"K4 group_norm x {shape} {str(dtype)[6:]} G={groups} act={act} shift={shifted} "
-            f"eps={eps:g}: rel_l2={err:.3e} max_abs={mae:.3e}; to fp64 K4 {to_exact[0]:.6e} "
+        log(f"K4 group_norm x {shape} {GN_LAYOUTS[layout]} {str(dtype)[6:]} G={groups} act={act} "
+            f"shift={shifted} eps={eps:g}: rel_l2={err:.3e} max_abs={mae:.3e}; to fp64 K4 {to_exact[0]:.6e} "
             f"plain {to_exact[1]:.6e} (ratio-1 {ratio:+.2e}, eps x10 {ratio_eps10:+.2e}, "
             f"margin {margin:.2e}) "
             f"ms={ms:.4f} (device "
@@ -1153,7 +1177,8 @@ def check_group_norm(censuses, device, iters: int = 10):
         if not ratio <= margin:
             raise AssertionError(f"K4 at {key}: relative L2 to fp64 {ratio:+.2e} past the "
                                  f"plain version's, margin {margin:.2e}")
-        measured[key] = dict(shape=f"{shape} G={groups} {act} shift={shifted}", ms=ms,
+        measured[key] = dict(shape=f"{shape} {GN_LAYOUTS[layout]} G={groups} {act} "
+                                   f"shift={shifted}", ms=ms,
                              device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
                              library_ms=lib_ms, library_device_ms=lib_dev_ms, flops=flops,
                              bytes=nbytes, rel_l2=err, max_abs_err=mae,
@@ -1161,11 +1186,12 @@ def check_group_norm(censuses, device, iters: int = 10):
         del x, x_lib, out, plain, shift
     worst = max(measured.values(), key=lambda r: r["rel_l2"])
     slower = [m["shape"] for m in measured.values() if m["device_ms"] > m["library_device_ms"]]
-    by_dtype = {str(dt)[6:]: (max(r["of_margin"] for r in rs), sum(r["eps10_caught"] for r in rs),
-                              len(rs))
-                for dt in K4_MARGIN for rs in [[measured[k] for k in keys if k[1] == dt]] if rs}
+    by_dtype = {f"{str(dt)[6:]} {GN_LAYOUTS[lay]}": (
+                    max(r["of_margin"] for r in rs), sum(r["eps10_caught"] for r in rs), len(rs))
+                for dt in K4_MARGIN for lay in GN_LAYOUTS
+                for rs in [[measured[k] for k in keys if k[1] == dt and k[6] == lay]] if rs}
     log(f"K4 at {len(measured)} shapes: largest rel_l2 {worst['rel_l2']:.3e} at {worst['shape']}; "
-        f"relative L2 to fp64 against the plain version's, per dtype (largest share of "
+        f"relative L2 to fp64 against the plain version's, per dtype and layout (largest share of "
         f"the margin, shapes where eps x10 fails the gate, shapes): {by_dtype}; on the device slower "
         f"than F.group_norm+act at "
         f"{len(slower)}: {slower}; device_ms calls that torch.profiler did not trace (timed "
@@ -1184,11 +1210,16 @@ def check_group_norm(censuses, device, iters: int = 10):
 
 
 def gn_inputs(key, g, device):
-    """GroupNorm's arguments for a census key, drawn from g: x and the shift
-    N(0, 1) in x's dtype, gamma 1 + N(0, 0.1^2), beta N(0, 0.1^2)."""
-    shape, dtype, groups, act, shifted, eps = key
+    """GroupNorm's arguments for a census key, drawn from g: x (in the key's
+    layout) and the shift N(0, 1) in x's dtype, gamma 1 + N(0, 0.1^2), beta
+    N(0, 0.1^2)."""
+    from morphablediffusion_torch.ops import group_norm as gn
+
+    shape, dtype, groups, act, shifted, eps, layout = key
     B, C = shape[:2]
     x = torch.randn(shape, generator=g, device=device).to(dtype)
+    if layout == gn.NHWC:
+        x = x.contiguous(memory_format=torch.channels_last)
     gamma = 1 + 0.1 * torch.randn(C, generator=g, device=device)
     beta = 0.1 * torch.randn(C, generator=g, device=device)
     shift = torch.randn(B, C, generator=g, device=device).to(dtype) if shifted else None
@@ -4243,6 +4274,9 @@ def main() -> int:
         f"{entry_resources(da.CLUSTER_KERNEL, 'md_ctx_cluster_kernel')}")
     log(f"  K3 resources: {entry_resources(da.DEPTH_KERNEL, 'md_depth_attn_kernel')}")
     log(f"  K4 resources: {entry_resources(gn.KERNEL, 'md_group_norm_kernel')}")
+    nhwc = entry_resources(gn.KERNEL, "md_group_norm_kernel_nhwc")
+    if nhwc is not None and nhwc.count("md_group_norm_kernel_nhwc") != 4:
+        raise AssertionError(f"K4's channels-last instantiations: {nhwc}")
 
     cfg = Config()
     k1_shapes, k2_shape = main_path_shapes(cfg)
@@ -4263,12 +4297,22 @@ def main() -> int:
     gn_avatar, gn_step = avatar_census(model, batch)
     censuses = [("serving", gn_avatar)]
     log(f"phase 3 GroupNorm census: {sum(gn_step.values())} calls per denoising step over "
-        f"{len(gn_step)} shapes, {sum(gn_avatar.values())} per avatar over {len(gn_avatar)}")
+        f"{len(gn_step)} shapes, {sum(gn_avatar.values())} per avatar over {len(gn_avatar)}; "
+        f"channels-last {sum(n for k, n in gn_step.items() if k[6] == gn.NHWC)} a step, "
+        f"{sum(n for k, n in gn_avatar.items() if k[6] == gn.NHWC)} an avatar")
 
-    # 4. the full avatar
+    # 4. the full avatar; K4's channels-last launches as the census's, in
+    # the warm-up and the timed avatar
     sampler = SyncDDIMSampler(model, sample_steps=cfg.model.sample_steps)
     want = avatar_launches(kernels, cfg, k1_shapes, k2_shape, gn_avatar)
+    nhwc0 = gn.nhwc_launches
     _, _, launches = timed_avatar(sampler, batch, kernels, want, "phase 4")
+    want_nhwc = 2 * sum(n for k, n in gn_avatar.items() if k[6] == gn.NHWC)
+    log(f"phase 4 K4 channels-last launches: {gn.nhwc_launches - nhwc0} of two avatars "
+        f"(census {want_nhwc}, of {2 * sum(gn_avatar.values())} GroupNorm calls)")
+    if gn.nhwc_launches - nhwc0 != want_nhwc:
+        raise AssertionError(f"K4 channels-last launches {gn.nhwc_launches - nhwc0}, the "
+                             f"census {want_nhwc}")
     if ((want[da.WGMMA_KERNEL.name], want[da.CLUSTER_KERNEL.name], want[da.KERNEL.name])
             != (350, 150, 0) or want["flash_attention"] != 250
             or want[gn.KERNEL.name] != 5902):

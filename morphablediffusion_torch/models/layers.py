@@ -1,8 +1,11 @@
 """Shared NN building blocks: norms, convs, attention, transformer blocks.
 
-Counterpart of the JAX package's `models/layers.py`. Layout is
+Counterpart of the JAX package's `models/layers.py`. Shapes are
 channels-first for feature maps ((B, C, H, W), volumes (B, C, D, H, W)) and
-(B, L, C) for token sequences.
+(B, L, C) for token sequences. In memory a 4-D map is NCHW-contiguous or
+channels-last, as the op that made it left it (the port's images and
+latents are (..., H, W, C), so their maps arrive channels-last, and convs,
+adds, pads and GroupNorm keep the layout); volumes are contiguous.
 
 Every module takes a compute `dtype`, the flax `dtype` of its counterpart:
 inputs and weights are cast to it (a no-op once the weights are cast for
@@ -133,10 +136,12 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, shift=None):
-        if x.is_cuda:
-            # the kernel takes contiguous NCHW / NCDHW; cuDNN may hand back
-            # channels-last maps (the plain version on the CPU takes any
-            # layout, and a copy would move the rounding of its backward)
+        if x.is_cuda and gn.kernel_layout(x) is None:
+            # the kernel takes x in the layout it comes in, NCHW-contiguous
+            # (any rank) or a channels-last 4-D map, and returns that layout;
+            # any other strides are copied to NCHW. The plain version on the
+            # CPU takes any layout, and a copy would move the rounding of its
+            # backward.
             x = x.contiguous()
         return gn.group_norm_shifted(x, shift, self.weight, self.bias, self.num_groups,
                                      self.epsilon, self.act)

@@ -532,7 +532,7 @@ def test_group_norm_plan_matches_the_kernel(dev):
     for shape, dtype, groups, _ in GN_PLANS + [((16, 128, 256, 256), torch.bfloat16, 32, 0)]:
         p = gn.gn_plan(shape, dtype, groups)
         args = (shape[1], groups, int(torch.tensor(shape[2:]).prod()), p.pack, p.cluster,
-                p.chunk, p.held, p.vec, gn._DTYPE_CODE[dtype])
+                p.chunk, p.held, p.vec, gn._DTYPE_CODE[dtype], gn.NCHW)
         assert lib.md_group_norm_smem_bytes(*args) == p.smem
         assert lib.md_group_norm_max_clusters(*args) >= 1
 

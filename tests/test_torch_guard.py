@@ -277,7 +277,7 @@ def test_chip_smoke_group_norm_fp64_gate(dtype):
 
     from morphablediffusion_torch.ops import group_norm as gn
 
-    key = ((2, 64, 32, 32), dtype, 8, "silu", True, 1e-6)
+    key = ((2, 64, 32, 32), dtype, 8, "silu", True, 1e-6, gn.NCHW)
     args = chip_smoke.gn_inputs(key, torch.Generator().manual_seed(0), "cpu")
     x, shift, gamma, beta = args[:4]
     exact = chip_smoke.gn_exact(*args)
@@ -289,6 +289,31 @@ def test_chip_smoke_group_norm_fp64_gate(dtype):
     assert plain < {torch.bfloat16: 3e-3, torch.float32: 3e-7}[dtype]
     margin = chip_smoke.K4_MARGIN[dtype] + chip_smoke.K4_FLIPS / x.numel()
     assert dist(gn._reference(*args)) / plain - 1 <= margin
+    assert dist(gn._reference(*args[:5], 1e-5, "silu")) / plain - 1 > margin
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_chip_smoke_group_norm_census_layouts(dtype):
+    """K4's census in chip_smoke.py keys each call by the layout the layer's
+    rule gives it (a channels-last map NHWC, a contiguous one and any other
+    strides NCHW), `gn_inputs` draws x in that layout, and the fp64 gate
+    holds the plain version on a channels-last x as on an NCHW one."""
+    from morphablediffusion_torch.models.layers import GroupNorm
+    from morphablediffusion_torch.ops import group_norm as gn
+
+    mod = GroupNorm(8, 64, epsilon=1e-6, act="silu")
+    x = torch.randn(2, 64, 8, 8).to(dtype)
+    counts = chip_smoke.gn_census(lambda: [mod(x), mod(x.contiguous(
+        memory_format=torch.channels_last)), mod(x.transpose(2, 3))])
+    assert {k[6]: n for k, n in counts.items()} == {gn.NCHW: 2, gn.NHWC: 1}
+    key = ((2, 64, 32, 32), dtype, 8, "silu", True, 1e-6, gn.NHWC)
+    args = chip_smoke.gn_inputs(key, torch.Generator().manual_seed(0), "cpu")
+    assert gn.kernel_layout(args[0]) == gn.NHWC
+    exact = chip_smoke.gn_exact(*args)
+    dist = lambda y: float((y.double() - exact).norm() / exact.norm())
+    plain = dist(gn._reference(*args))
+    assert plain < {torch.bfloat16: 3e-3, torch.float32: 3e-7}[dtype]
+    margin = chip_smoke.K4_MARGIN[dtype] + chip_smoke.K4_FLIPS / args[0].numel()
     assert dist(gn._reference(*args[:5], 1e-5, "silu")) / plain - 1 > margin
 
 
